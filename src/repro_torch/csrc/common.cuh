@@ -1,0 +1,39 @@
+// Shared pieces of the repro_torch kernels: accumulator types, the launch
+// shape, and the error-string export every library carries.
+//
+// Each kernel source is compiled on its own into a shared library with a
+// plain C interface (see repro_torch/kernels/_build.py); every entry point
+// returns cudaGetLastError() right after its launch.
+#pragma once
+
+#include <cuda_bf16.h>
+#include <cuda_runtime.h>
+
+namespace repro {
+
+constexpr int kThreads = 256;
+
+// Widening load: bf16 inputs accumulate in float, f32/f64 in their own type.
+__device__ __forceinline__ float to_acc(float v) { return v; }
+__device__ __forceinline__ double to_acc(double v) { return v; }
+__device__ __forceinline__ float to_acc(__nv_bfloat16 v) { return __bfloat162float(v); }
+
+// Products rounded on their own, never contracted into an FMA with the
+// following subtraction: the elimination then rounds as the plain PyTorch
+// version does, step for step.
+__device__ __forceinline__ float mul_rn(float a, float b) { return __fmul_rn(a, b); }
+__device__ __forceinline__ double mul_rn(double a, double b) { return __dmul_rn(a, b); }
+
+// Opt in to more than 48 KB of dynamic shared memory where a launch needs it.
+template <typename Kernel>
+inline cudaError_t set_smem(Kernel kernel, size_t bytes) {
+  if (bytes <= 48 * 1024) return cudaSuccess;
+  return cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                              static_cast<int>(bytes));
+}
+
+}  // namespace repro
+
+extern "C" const char* repro_cuda_error_string(int err) {
+  return cudaGetErrorString(static_cast<cudaError_t>(err));
+}

@@ -1,0 +1,264 @@
+"""repro_torch kernels on the CPU: each wrapper's plain version against the
+reference's Pallas kernel (interpret mode), on the same numpy inputs.
+
+Tolerances: f64 ≤ 1e-9 relative (the reference's own pin); f32 ≤ 1e-5
+relative to the result's largest magnitude (the fold_eval pin).
+"""
+
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from repro.kernels.fold_eval.ops import fold_eval as ref_fold_eval
+from repro.kernels.foldsolve.ops import fold_jitter as ref_fold_jitter
+from repro.kernels.foldsolve.ops import fold_residual_bad as ref_residual_bad
+from repro.kernels.foldsolve.ops import foldsolve as ref_foldsolve
+from repro.kernels.gram.ops import centered_gram_xla as ref_centered_gram_xla
+from repro.kernels.gram.ops import gram as ref_gram
+from repro.kernels.hat_apply.ops import hat_errors as ref_hat_errors
+from repro_torch.kernels.common import cdiv, default_fused
+from repro_torch.kernels.fold_eval.ops import fold_eval
+from repro_torch.kernels.foldsolve.foldsolve import SMEM_BYTES, aug_in_shared, block_cols
+from repro_torch.kernels.foldsolve.ops import fold_jitter, fold_residual_bad, foldsolve
+from repro_torch.kernels.gram.gram import gram_splits
+from repro_torch.kernels.gram.ops import (PRECISIONS, centered_gram, centered_gram_plain,
+                                          check_precision, gram)
+from repro_torch.kernels.hat_apply.ops import hat_errors
+
+TOL = {np.float64: 1e-9, np.float32: 1e-5}
+
+
+def _close(got, want, dtype):
+    got, want = np.asarray(got, np.float64), np.asarray(want, np.float64)
+    scale = max(float(np.max(np.abs(want))), 1e-30)
+    assert got.shape == want.shape
+    assert float(np.max(np.abs(got - want))) <= TOL[dtype] * scale
+
+
+def _t(a):
+    return torch.from_numpy(np.ascontiguousarray(a))
+
+
+def _rng(seed):
+    return np.random.default_rng(seed)
+
+
+# ---------------------------------------------------------------- gram ----
+
+@pytest.mark.parametrize("n,p", [(8, 16), (100, 300), (130, 70), (33, 1000)])
+@pytest.mark.parametrize("dtype", [np.float64, np.float32])
+def test_gram_matches_reference(n, p, dtype):
+    x = _rng(n + p).normal(size=(n, p)).astype(dtype)
+    got = gram(_t(x))
+    assert got.dtype == _t(x).dtype
+    _close(got, ref_gram(jnp.asarray(x), interpret=True), dtype)
+
+
+@pytest.mark.parametrize("dtype", [np.float64, np.float32])
+def test_centered_gram_matches_reference(dtype):
+    x = (_rng(3).normal(size=(64, 200)) + 5.0).astype(dtype)
+    want = ref_gram(jnp.asarray(x), center=True, interpret=True)
+    _close(centered_gram(_t(x)), want, dtype)
+    _close(centered_gram_plain(_t(x)), ref_centered_gram_xla(jnp.asarray(x)), dtype)
+
+
+def test_gram_bf16_matches_reference_and_bound():
+    """bf16_gram: centre, cast, accumulate in f32 — the reference's numerics,
+    inside the documented ~2·2⁻⁸‖X_c‖² bound."""
+    x = _rng(21).normal(size=(96, 300)).astype(np.float32)
+    got = gram(_t(x), center=True, precision="bf16_gram")
+    assert got.dtype == torch.float32
+    ref = np.asarray(ref_gram(jnp.asarray(x), center=True, precision="bf16_gram",
+                              interpret=True))
+    _close(got, ref, np.float32)
+    _close(centered_gram_plain(_t(x), precision="bf16_gram"),
+           ref_centered_gram_xla(jnp.asarray(x), precision="bf16_gram"), np.float32)
+    xc = x.astype(np.float64) - x.astype(np.float64).mean(0)
+    exact = xc @ xc.T
+    assert float(np.max(np.abs(got.numpy() - exact))) < 4.0 * 2.0**-8 * np.max(np.abs(exact))
+
+
+def test_gram_precision_names():
+    assert PRECISIONS == ("fp32", "bf16_gram")
+    assert check_precision(None) == "fp32"
+    x = _t(_rng(22).normal(size=(32, 64)))
+    assert torch.equal(gram(x, center=True), gram(x, center=True, precision="fp32"))
+    with pytest.raises(ValueError, match="precision"):
+        gram(x, precision="fp8")
+
+
+def test_gram_splits_fill_the_card():
+    # main size: 13 tiles → 91 upper tiles; 132 SMs → 3 splits, 273 blocks
+    assert gram_splits(787, 76000, 132) == 3
+    # a short contraction is not split below 1024 columns per split
+    assert gram_splits(787, 1500, 132) == 2
+    assert gram_splits(8, 16, 132) == 1
+    assert gram_splits(4096, 76000, 132) == 1
+
+
+# ----------------------------------------------------------- hat_apply ----
+
+@pytest.mark.parametrize("n,b", [(16, 1), (100, 7), (73, 33), (130, 70)])
+@pytest.mark.parametrize("dtype", [np.float64, np.float32])
+def test_hat_apply_matches_reference(n, b, dtype):
+    rng = _rng(n + b)
+    h = (rng.normal(size=(n, n)) / n).astype(dtype)
+    y = rng.normal(size=(n, b)).astype(dtype)
+    _close(hat_errors(_t(h), _t(y)),
+           ref_hat_errors(jnp.asarray(h), jnp.asarray(y), interpret=True), dtype)
+
+
+def test_hat_apply_1d():
+    rng = _rng(9)
+    h, y = rng.normal(size=(50, 50)) / 50, rng.normal(size=50)
+    got = hat_errors(_t(h), _t(y))
+    assert got.shape == (50,)
+    _close(got, ref_hat_errors(jnp.asarray(h), jnp.asarray(y), interpret=True), np.float64)
+
+
+# ----------------------------------------------------------- foldsolve ----
+
+def _h_te(k, m, dtype, seed):
+    a = _rng(seed).normal(size=(k, m, m)) / (3.0 * m ** 0.5)
+    return np.einsum("kij,klj->kil", a, a).astype(dtype)
+
+
+@pytest.mark.parametrize("k,m,b", [(5, 8, 1), (10, 20, 4), (4, 50, 16), (2, 1, 3), (7, 1, 1)])
+@pytest.mark.parametrize("dtype", [np.float64, np.float32])
+def test_foldsolve_matches_reference(k, m, b, dtype):
+    h_te = _h_te(k, m, dtype, k * m)
+    e = _rng(k + m + b).normal(size=(k, m, b)).astype(dtype)
+    got = foldsolve(_t(h_te), _t(e))
+    _close(got, ref_foldsolve(jnp.asarray(h_te), jnp.asarray(e), interpret=True), dtype)
+
+
+def test_foldsolve_1d_rhs():
+    h_te = _h_te(6, 9, np.float64, 4)
+    e = _rng(5).normal(size=(6, 9))
+    got = foldsolve(_t(h_te), _t(e))
+    assert got.shape == (6, 9)
+    _close(got, ref_foldsolve(jnp.asarray(h_te), jnp.asarray(e), interpret=True), np.float64)
+
+
+def _near_singular_h_te(k, m, seed=7):
+    """H_Te blocks making I − H_Te singular to machine precision."""
+    q, _ = np.linalg.qr(_rng(seed).normal(size=(m, m)))
+    d = np.concatenate([np.ones(m - 1), [1e-14]])
+    a = (q * d[None, :]) @ q.T                    # I − H_Te = Q diag(d) Qᵀ
+    return np.tile((np.eye(m) - a)[None], (k, 1, 1))
+
+
+def test_foldsolve_jitter_near_singular():
+    """The retry keeps near-singular folds finite, matches the shifted LAPACK
+    solve, and matches the reference's retried kernel output."""
+    k, m, b = 3, 12, 4
+    h_te = _near_singular_h_te(k, m)
+    e = _rng(8).normal(size=(k, m, b))
+    raw = foldsolve(_t(h_te), _t(e), jitter=None).numpy()
+    got = foldsolve(_t(h_te), _t(e)).numpy()
+    assert np.all(np.isfinite(got))
+    eps = fold_jitter(_t(h_te)).numpy()
+    np.testing.assert_array_equal(eps, np.asarray(ref_fold_jitter(jnp.asarray(h_te))))
+    want = np.stack([np.linalg.solve(np.eye(m) - h_te[i] + eps[i] * np.eye(m), e[i])
+                     for i in range(k)])
+    assert np.max(np.abs(got - want)) / np.max(np.abs(want)) < 1e-8
+    ref = np.asarray(ref_foldsolve(jnp.asarray(h_te), jnp.asarray(e), interpret=True))
+    assert np.max(np.abs(got - ref)) / np.max(np.abs(ref)) < 1e-8
+    # the raw path really was pathological (else the test is vacuous)
+    assert not np.all(np.isfinite(raw)) or np.max(np.abs(raw)) > 1e6 * np.max(np.abs(want))
+
+
+def test_foldsolve_jitter_retries_only_bad_folds():
+    """A mixed batch: healthy folds keep their first solve bit for bit."""
+    m, b = 10, 3
+    healthy = _h_te(2, m, np.float64, 31)
+    h_te = np.concatenate([healthy[:1], _near_singular_h_te(1, m), healthy[1:]])
+    e = _rng(32).normal(size=(3, m, b))
+    bad = fold_residual_bad(_t(h_te), foldsolve(_t(h_te), _t(e), jitter=None), _t(e))
+    assert bad.tolist() == [False, True, False]
+    ref_bad = ref_residual_bad(jnp.asarray(h_te),
+                               ref_foldsolve(jnp.asarray(h_te), jnp.asarray(e),
+                                             interpret=True, jitter=None), jnp.asarray(e))
+    assert np.asarray(ref_bad).tolist() == bad.tolist()
+    got = foldsolve(_t(h_te), _t(e))
+    raw = foldsolve(_t(h_te), _t(e), jitter=None)
+    assert torch.equal(got[0], raw[0]) and torch.equal(got[2], raw[2])
+    assert torch.isfinite(got).all()
+
+
+def test_foldsolve_jitter_noop_when_well_conditioned():
+    h_te = _h_te(4, 10, np.float64, 13)
+    e = _rng(14).normal(size=(4, 10, 6))
+    assert torch.equal(foldsolve(_t(h_te), _t(e)), foldsolve(_t(h_te), _t(e), jitter=None))
+    with pytest.raises(ValueError, match="jitter"):
+        foldsolve(_t(h_te), _t(e), jitter="always")
+
+
+def test_foldsolve_shared_memory_boundary():
+    """The augmented block moves to global scratch past 227 KB, at any m."""
+    assert block_cols(250) == 64 and block_cols(1) == 1
+    assert aug_in_shared(78, 64, 4) and aug_in_shared(78, 64, 8)
+    # f32 with 64 columns: the last m in shared memory is 210
+    last = max(m for m in range(1, 400) if aug_in_shared(m, 64, 4))
+    assert last == 210
+    assert (last * (last + 64) + 2 * last + 64) * 4 <= SMEM_BYTES
+    assert not aug_in_shared(last + 1, 64, 4)
+    assert not aug_in_shared(393, 64, 4)          # K = 2 at N = 787
+    assert aug_in_shared(1, 64, 8)                # leave-one-out
+
+
+# ----------------------------------------------------------- fold_eval ----
+
+def _fold_eval_problem(k, m, n, b, dtype, seed=0):
+    rng = _rng(seed)
+    h_rows = (rng.normal(size=(k, m, n)) / n).astype(dtype)
+    y = rng.normal(size=(n, b)).astype(dtype)
+    y_te = rng.normal(size=(k, m, b)).astype(dtype)
+    return h_rows, _h_te(k, m, dtype, seed + 1), y, y_te
+
+
+@pytest.mark.parametrize("k,m,n,b", [(5, 8, 40, 1), (4, 25, 100, 7), (3, 1, 130, 70),
+                                     (2, 40, 80, 3)])
+@pytest.mark.parametrize("dtype", [np.float64, np.float32])
+def test_fold_eval_matches_reference(k, m, n, b, dtype):
+    h_rows, h_te, y, y_te = _fold_eval_problem(k, m, n, b, dtype, seed=k + m)
+    got = fold_eval(_t(h_rows), _t(h_te), _t(y), _t(y_te))
+    want = ref_fold_eval(jnp.asarray(h_rows), jnp.asarray(h_te), jnp.asarray(y),
+                         jnp.asarray(y_te), interpret=True)
+    _close(got, want, dtype)
+
+
+def test_fold_eval_jitter_near_singular():
+    k, m, n, b = 2, 8, 32, 5
+    h_rows, _, y, y_te = _fold_eval_problem(k, m, n, b, np.float64)
+    h_te = _near_singular_h_te(k, m)
+    got = fold_eval(_t(h_rows), _t(h_te), _t(y), _t(y_te)).numpy()
+    assert np.all(np.isfinite(got))
+    e = y_te - np.einsum("kmn,nb->kmb", h_rows, y)
+    eps = np.asarray(ref_fold_jitter(jnp.asarray(h_te)))
+    want = np.stack([np.linalg.solve(np.eye(m) - h_te[i] + eps[i] * np.eye(m), e[i])
+                     for i in range(k)])
+    assert np.max(np.abs(got - want)) / np.max(np.abs(want)) < 1e-8
+
+
+# ------------------------------------------------------------ dispatch ----
+
+def test_common_helpers():
+    assert cdiv(787, 64) == 13 and cdiv(64, 64) == 1
+    assert default_fused("cuda") and default_fused(torch.device("cuda", 0))
+    assert not default_fused("cpu")
+
+
+@pytest.mark.parametrize("call", [
+    lambda t: gram(t((6, 20))),
+    lambda t: hat_errors(t((6, 6)), t((6, 2))),
+    lambda t: foldsolve(t((2, 3, 3)), t((2, 3, 1)), jitter=None),
+    lambda t: fold_eval(t((2, 3, 6)), t((2, 3, 3)), t((6, 1)), t((2, 3, 1)), jitter=None),
+], ids=["gram", "hat_apply", "foldsolve", "fold_eval"])
+def test_non_cpu_tensor_never_takes_the_plain_version(call):
+    """Only a CPU tensor reaches the plain version: any other device goes to
+    the kernel route, which refuses what is not a CUDA tensor."""
+    with pytest.raises(ValueError, match="CUDA"):
+        call(lambda shape: torch.zeros(shape, device="meta"))
+
