@@ -1,19 +1,34 @@
-"""Drive the repro_torch main path on one NVIDIA GPU and check every kernel.
+"""Drive the repro_torch paths on one NVIDIA GPU and check every kernel.
 
 Run from the repository root:
 
     python3 chip_smoke.py
 
-It builds the four CUDA kernels (gram, hat_apply, foldsolve, fold_eval)
-from ``src/repro_torch/csrc`` with nvcc, drives the paper's workload at the
-MEG/EEG size through the package's public entry points — binary LDA with
-analytical 10-fold CV at P = 76,000 features, ridge CV, and a 1000-draw
-permutation test — checks that every kernel launched on that run, holds
-each kernel against its plain PyTorch version on the card (at the main
-path's shapes, at ragged shapes, at f64, bf16 Gram, m = 1 and m = 393
-folds, and a near-singular fold that forces the jitter retry), and checks
-the results: against the Cholesky composite, against an f64 run, and,
-at P = 3,800, analytical CV against retraining per fold.
+It builds the five CUDA kernels (gram, hat_apply, foldsolve, fold_eval,
+pairdist) from ``src/repro_torch/csrc`` with nvcc, all at once, and drives
+three paths at the paper's MEG/EEG size (787 trials, P = 76,000 features,
+10-fold CV) through the package's public entry points:
+
+* binary: binary LDA with analytical CV, ridge CV, and a 1000-draw
+  permutation test (Algorithm 1);
+* multi-class: 3-class LDA by Algorithm 2 and its 1000-draw permutation
+  test, against an f64 composite run, and, at P = 1,900, analytical CV
+  against retraining direct LDA per fold;
+* RSA: 8-condition cross-validated RDMs (pairwise accuracy and contrast
+  with and without the bias adjust, confusion), the condition-mean
+  Euclidean RDM, and Spearman model scoring with a 1000-draw
+  condition-permutation null.
+
+Each path's launch counts are reset before it and read after it; every
+kernel the path should run must have launched. Every kernel is held
+against its plain PyTorch version on the card (at each path's own shapes
+and column blocks, at ragged shapes, at f64, bf16, m = 1 and m = 393
+folds, a near-singular fold that forces the jitter retry, and a
+trial-level RDM of 787 patterns), and the results are checked: against
+the Cholesky composite and against f64 composite runs (binary decision
+values, multi-class predictions, the RSA path's accuracy, contrast and
+confusion RDMs), and against retraining per fold (binary at P = 3,800,
+multi-class at P = 1,900).
 
 Each phase prints one JSON line. The line before the last is the card's
 name and power limit from nvidia-smi; the last line is
@@ -39,6 +54,9 @@ N_TRIALS = 787
 K = 10
 N_PERM = 1000
 CHUNK = 250
+MC_CLASSES = 3
+MC_CHUNK = 64
+RSA_CONDITIONS = 8
 REPS = 20
 
 # H100 SXM peaks (NVIDIA data sheet): memory 3.35 TB/s; outside the tensor
@@ -52,6 +70,9 @@ TOL = {torch.float32: 1e-5, torch.float64: 1e-9, torch.bfloat16: 1e-5}
 # f32 decision values against the composite route and against f64: two f32
 # evaluations of ill-conditioned-ish solves from a 76,000-term Gram.
 TOL_DVALS_F32 = 2e-3
+# f32 contrast RDMs against f64: each entry is a mean of hundreds of
+# decision values, each within about 1e-6 of f64 (relative to max |RDM|).
+TOL_RDM_F32 = 1e-4
 # Analytical CV against retraining per fold, in f64 (the paper's exactness).
 TOL_EXACT = 1e-8
 
@@ -100,6 +121,18 @@ def bound(nbytes: float, flops: float, dtype) -> tuple:
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
+def expect_launches(path: str, launches: dict, names) -> None:
+    missing = [k for k in names if launches.get(k, 0) <= 0]
+    if missing:
+        fail(f"kernels not launched on the {path} path: {missing}")
+
+
+def lam_rule(x: torch.Tensor) -> float:
+    """λ = tr(G_c) / N, the scale of the centered Gram's diagonal."""
+    xc = x - x.mean(dim=0, keepdim=True)
+    return float((xc * xc).sum()) / x.shape[0]
+
+
 def timed(fn):
     torch.cuda.synchronize()
     t0 = time.perf_counter()
@@ -112,7 +145,7 @@ def main() -> None:
     if not torch.cuda.is_available():
         fail("torch.cuda.is_available() is false: this script needs an NVIDIA GPU")
     from repro_torch.core import fastcv, folds as folds_mod, lda, metrics
-    from repro_torch.core import permutation, regression
+    from repro_torch.core import multiclass, permutation, regression
     from repro_torch.data import eeg
     from repro_torch.kernels import _build
     from repro_torch.kernels.fold_eval.ops import fold_eval
@@ -124,6 +157,10 @@ def main() -> None:
     from repro_torch.kernels.gram.ref import gram_ref
     from repro_torch.kernels.hat_apply.ops import hat_errors
     from repro_torch.kernels.hat_apply.ref import hat_apply_ref
+    from repro_torch.kernels.pairdist.ops import pairwise_sq_dists
+    from repro_torch.kernels.pairdist.ref import pairwise_sq_dists_ref
+    from repro_torch.rsa import compare as rsa_compare
+    from repro_torch.rsa import rdm as rsa_rdm
 
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
@@ -155,9 +192,7 @@ def main() -> None:
     if (n, p) != (787, 76000):
         fail(f"unexpected feature shape {(n, p)}")
     folds = folds_mod.kfold(n, K, seed=SEED, device=dev)
-    xc = x - x.mean(dim=0, keepdim=True)
-    lam = float((xc * xc).sum()) / n                             # tr(G_c) / N
-    del xc
+    lam = lam_rule(x)
 
     _build.reset_launches()
     (dvals, y_te), t_cv = timed(lambda: fastcv.binary_cv(x, y, folds, lam))
@@ -174,9 +209,7 @@ def main() -> None:
           "n_perm": N_PERM, "chunk": CHUNK, "launches": launches,
           "seconds": {"simulate": t_sim, "binary_cv": t_cv, "ridge_cv": t_ridge,
                       "permutation": t_perm}})
-    missing = [k for k, v in launches.items() if v <= 0]
-    if missing:
-        fail(f"kernels not launched on the main path: {missing}")
+    expect_launches("binary", launches, ("gram", "hat_apply", "foldsolve", "fold_eval"))
     for name, val in (("dvals", dvals), ("preds", preds), ("null", perm.null)):
         if not bool(torch.isfinite(val).all()):
             fail(f"non-finite {name} on the main path")
@@ -220,7 +253,7 @@ def main() -> None:
 
     # analytical CV == retraining per fold, at the paper's P = 3,800 (f64)
     x38 = eeg.windowed_features(ds, 100.0).double()
-    lam38 = float(((x38 - x38.mean(dim=0)) ** 2).sum()) / n       # tr(G_c) / N
+    lam38 = lam_rule(x38)
     (dv_an, _), t_an = timed(lambda: fastcv.binary_cv(x38, y.double(), folds, lam38,
                                                       adjust_bias=False))
     (dv_st, _), t_st = timed(lambda: lda.standard_cv_binary(x38, y.double(), folds,
@@ -236,7 +269,7 @@ def main() -> None:
     xs, ys = x[:120, :500].contiguous(), y[:120]
     fs_gpu = folds_mod.kfold(120, 6, seed=1, device=dev)
     fs_cpu = folds_mod.kfold(120, 6, seed=1, device="cpu")
-    lam_s = float(((xs - xs.mean(0)) ** 2).sum()) / 120
+    lam_s = lam_rule(xs)
     small_gpu = fastcv.binary_cv(xs.double(), ys.double(), fs_gpu, lam_s)[0].cpu()
     small_cpu = fastcv.binary_cv(xs.double().cpu(), ys.double().cpu(), fs_cpu, lam_s)[0]
     e_cpu, s_cpu = rel_err(small_gpu, small_cpu)
@@ -244,6 +277,181 @@ def main() -> None:
           "max_abs_err": e_cpu, "scale": s_cpu, "tol": TOL[torch.float64]})
     if e_cpu > TOL[torch.float64] * s_cpu:
         fail("CUDA and CPU results disagree on a small input")
+
+    # -- 5. multi-class LDA (Algorithm 2) and its permutation test --------------
+    ds3 = eeg.simulate_subject(SEED, n_trials=N_TRIALS, num_classes=MC_CLASSES, device=dev)
+    x3, y3 = eeg.windowed_features(ds3, 5.0), ds3.y               # (787, 76000) f32
+    folds3 = folds_mod.kfold(n, K, seed=SEED, device=dev)
+    lam3 = lam_rule(x3)
+    _build.reset_launches()
+    (pred3, y3_te), t_mc = timed(lambda: multiclass.analytical_cv_multiclass(
+        x3, y3, folds3, MC_CLASSES, lam3))
+    perm3, t_mperm = timed(lambda: permutation.analytical_permutation_multiclass(
+        x3, y3, folds3, MC_CLASSES, lam3, N_PERM, SEED, chunk=MC_CHUNK))
+    launches_mc = dict(_build.LAUNCHES)
+    expect_launches("multi-class", launches_mc, ("gram", "hat_apply", "foldsolve"))
+    # the distances behind the predictions, on the kernel route (f32) and on
+    # the f64 composite route; near-ties of the argmin may fall either way
+    plan3 = fastcv.prepare(x3, folds3, lam3)
+    d2_32, a2_32 = multiclass._batch_distances(plan3, y3[None], MC_CLASSES)
+    x3_64 = x3.double()
+    plan3_64 = fastcv.prepare(x3_64, folds3, lam3)
+    pred3_64, _ = multiclass.analytical_cv_multiclass(x3_64, y3, folds3, MC_CLASSES, lam3,
+                                                      plan=plan3_64, fused=False)
+    d2_64, _ = multiclass._batch_distances(plan3_64, y3[None], MC_CLASSES, fused=False)
+    del x3_64, plan3_64
+    s64 = d2_64[0].sort(dim=-1).values
+    decisive = (s64[..., 1] - s64[..., 0]) > TOL_DVALS_F32 * s64[..., -1]
+    differ = pred3 != pred3_64
+    mc = {"phase": "multiclass", "N": n, "P": x3.shape[1], "C": MC_CLASSES, "K": K,
+          "dtype": "float32", "lam": lam3, "lam_rule": "tr(G_c)/N",
+          "accuracy": float(metrics.multiclass_accuracy(pred3, y3_te)),
+          "accuracy_f64": float(metrics.multiclass_accuracy(pred3_64, y3_te)),
+          "perm_observed": float(perm3.observed), "p_value": float(perm3.p),
+          "n_perm": N_PERM, "chunk": MC_CHUNK, "launches": launches_mc,
+          "max_alpha2": float(a2_32.max()), "alpha2_clip": 1.0 - multiclass._EPS,
+          "alpha2_clip_in_f32": float(torch.tensor(1.0 - multiclass._EPS,
+                                                   dtype=torch.float32)),
+          "vs_f64_composite": {"differ": int(differ.sum()),
+                               "differ_decisive": int((differ & decisive).sum()),
+                               "near_ties": int((~decisive).sum()),
+                               "margin_tol": TOL_DVALS_F32},
+          "seconds": {"analytical_cv": t_mc, "permutation": t_mperm}}
+    emit(mc)
+    for name, val in (("distances", d2_32), ("alpha2", a2_32), ("null", perm3.null)):
+        if not bool(torch.isfinite(val).all()):
+            fail(f"non-finite {name} on the multi-class path")
+    if not torch.equal(d2_32[0].argmin(dim=-1), pred3):
+        fail("multi-class predictions are not the argmin of their distances")
+    if pred3.shape != (K, folds3.test_size) or perm3.null.shape != (N_PERM,):
+        fail("multi-class outputs have unexpected shapes")
+    if mc["vs_f64_composite"]["differ_decisive"]:
+        fail("multi-class f32 predictions differ from f64 beyond the near-ties")
+    del x3
+
+    # analytical multi-class CV == retraining direct LDA, P = 1,900 (f64)
+    x19 = eeg.windowed_features(ds3, 200.0).double()
+    lam19 = lam_rule(x19)
+    (p_an, yte_an), t_an19 = timed(lambda: multiclass.analytical_cv_multiclass(
+        x19, y3, folds3, MC_CLASSES, lam19))
+    (p_st, yte_st), t_st19 = timed(lambda: multiclass.standard_cv_multiclass(
+        x19, y3, folds3, MC_CLASSES, lam19))
+    emit({"phase": "multiclass_exactness", "P": x19.shape[1], "dtype": "float64",
+          "lam": lam19, "predictions": int(p_an.numel()),
+          "mismatches": int((p_an != p_st).sum()),
+          "accuracy": float(metrics.multiclass_accuracy(p_an, yte_an)),
+          "seconds": {"analytical": t_an19, "retrain": t_st19}})
+    if not (torch.equal(p_an, p_st) and torch.equal(yte_an, yte_st)):
+        fail("analytical multi-class CV does not equal retraining at P = 1,900")
+    del ds3, x19
+
+    # -- 6. RSA: cross-validated RDMs, pattern RDMs, model comparison ----------
+    ds8 = eeg.simulate_subject(SEED, n_trials=N_TRIALS, num_classes=RSA_CONDITIONS,
+                               device=dev)
+    x8, y8 = eeg.windowed_features(ds8, 5.0), ds8.y               # (787, 76000) f32
+    del ds8
+    c8 = RSA_CONDITIONS
+    folds8 = folds_mod.stratified_kfold(y8, K, seed=SEED, device=dev)
+    lam8 = lam_rule(x8)
+
+    def rsa_path():
+        plan8 = fastcv.prepare(x8, folds8, lam8)
+        rdms = {
+            "accuracy": rsa_rdm.rdm_binary(x8, y8, folds8, c8, plan=plan8),
+            "contrast": rsa_rdm.rdm_binary(x8, y8, folds8, c8, plan=plan8,
+                                           dissimilarity="contrast"),
+            "contrast_no_bias_adjust": rsa_rdm.rdm_from_pair_values(
+                rsa_rdm.pair_dissimilarities(
+                    plan8, rsa_rdm.pair_contrast_columns(y8, c8, plan8.h.dtype),
+                    dissimilarity="contrast", adjust_bias=False), c8),
+            "confusion": rsa_rdm.rdm_multiclass(plan8, y8, c8),
+        }
+        means = rsa_rdm.condition_means(x8, y8, c8)
+        rdms["euclidean"] = rsa_rdm.euclidean_rdm(means)
+        rdms["ring"] = rsa_rdm.ring_rdm(c8, device=dev)
+        models = torch.stack([rdms["ring"], rdms["euclidean"].double()])
+        emp = rdms["contrast"].double()
+        scores = rsa_compare.compare_rdms(emp, models, "spearman")
+        perms8 = permutation.permutation_indices(SEED, c8, N_PERM, device=dev)
+        null8 = rsa_compare.permutation_null(emp, models, perms8, "spearman")
+        return plan8, rdms, means, scores, null8
+
+    _build.reset_launches()
+    (plan8, rdms, means8, scores8, null8), t_rsa = timed(rsa_path)
+    launches_rsa = dict(_build.LAUNCHES)
+    expect_launches("RSA", launches_rsa,
+                    ("gram", "hat_apply", "foldsolve", "fold_eval", "pairdist"))
+    p8 = [float(permutation.p_value(scores8[i], null8[i])) for i in range(len(scores8))]
+    off = ~torch.eye(c8, dtype=torch.bool, device=dev)
+    emit({"phase": "rsa", "N": n, "P": x8.shape[1], "conditions": c8, "pairs": c8 * (c8 - 1) // 2,
+          "K": K, "m": folds8.test_size, "dtype": "float32", "lam": lam8,
+          "mean_offdiagonal": {k: float(r[off].double().mean()) for k, r in rdms.items()},
+          "empirical": "contrast", "models": ["ring", "euclidean"], "method": "spearman",
+          "scores": scores8.tolist(), "p_values": p8, "n_perm": N_PERM,
+          "launches": launches_rsa, "seconds": t_rsa})
+    for name, r in rdms.items():
+        if r.shape != (c8, c8) or not bool(torch.isfinite(r).all()):
+            fail(f"RSA {name} RDM is not a finite ({c8}, {c8}) matrix")
+        if not torch.equal(r, r.T) or bool(torch.diagonal(r).any()):
+            fail(f"RSA {name} RDM is not symmetric with a zero diagonal")
+    if null8.shape != (2, N_PERM) or not bool(torch.isfinite(null8).all()):
+        fail("RSA permutation null is not finite of shape (2, T)")
+
+    # the RDMs' values against an f64 composite run on a plain Gram
+    x8_64 = x8.double()
+    plan8_64 = fastcv.prepare(x8_64, folds8, lam8, gram=centered_gram_plain(x8_64))
+    del x8_64
+    cols8_64 = rsa_rdm.pair_contrast_columns(y8, c8, torch.float64)
+
+    def pair_rdm_64(**kw):
+        return rsa_rdm.rdm_from_pair_values(
+            rsa_rdm.pair_dissimilarities(plan8_64, cols8_64, fused=False, **kw), c8)
+
+    rsa_checks = {}
+    for name, kw in (("contrast", {}), ("contrast_no_bias_adjust", {"adjust_bias": False})):
+        err, scale = rel_err(rdms[name], pair_rdm_64(dissimilarity="contrast", **kw))
+        rsa_checks[name] = {"max_abs_err": err, "scale": scale, "tol": TOL_RDM_F32,
+                            "ok": err <= TOL_RDM_F32 * scale}
+    # pairwise accuracy: a test sample whose f64 bias-adjusted decision value
+    # lies within the margin of 0 may flip, moving its pair's share by
+    # 1/count; the f32 share itself rounds by < 1e-6
+    y_dot_te, y_dot_tr = fastcv.cv_errors(plan8_64, cols8_64, fused=False)
+    tr_lab, te_lab = cols8_64[plan8_64.tr_idx], cols8_64[plan8_64.te_idx]
+
+    def train_mean(mask):
+        mask = mask.double()
+        return (y_dot_tr * mask).sum(dim=1) / mask.sum(dim=1).clamp(min=1.0)
+
+    dv8_64 = y_dot_te - 0.5 * (train_mean(tr_lab > 0) + train_mean(tr_lab < 0))[:, None, :]
+    in_pair = te_lab != 0
+    ties8 = in_pair & (dv8_64.abs() <= TOL_DVALS_F32 * float(dv8_64[in_pair].abs().max()))
+    slack = ties8.sum(dim=(0, 1)) / in_pair.sum(dim=(0, 1))          # (B,) pairs
+    iu = torch.triu_indices(c8, c8, 1, device=dev)                   # the same order
+    acc_err = (rdms["accuracy"].double() - pair_rdm_64(dissimilarity="accuracy"))[iu[0], iu[1]]
+    rsa_checks["accuracy"] = {"max_abs_err": float(acc_err.abs().max()),
+                              "near_ties": int(ties8.sum()), "margin_tol": TOL_DVALS_F32,
+                              "ok": bool((acc_err.abs() <= slack + 1e-6).all())}
+    # confusion: the f32 kernel route's predictions equal the f64 composite's
+    # off the near-ties of the centroid distances, and give the RDM
+    d2_8, _ = multiclass._batch_distances(plan8, y8[None], c8)
+    d2_8_64, _ = multiclass._batch_distances(plan8_64, y8[None], c8, fused=False)
+    pred8, pred8_64 = d2_8[0].argmin(dim=-1), d2_8_64[0].argmin(dim=-1)
+    s8 = d2_8_64[0].sort(dim=-1).values
+    decisive8 = (s8[..., 1] - s8[..., 0]) > TOL_DVALS_F32 * s8[..., -1]
+    y8_te = y8[plan8.te_idx]
+    rsa_checks["confusion"] = {
+        "differ": int((pred8 != pred8_64).sum()),
+        "differ_decisive": int(((pred8 != pred8_64) & decisive8).sum()),
+        "near_ties": int((~decisive8).sum()), "margin_tol": TOL_DVALS_F32,
+        "equal_to_f64": torch.equal(rdms["confusion"],
+                                    rsa_rdm.rdm_from_confusion(pred8_64, y8_te, c8)),
+        "ok": (torch.equal(rdms["confusion"], rsa_rdm.rdm_from_confusion(pred8, y8_te, c8))
+               and torch.equal(pred8[decisive8], pred8_64[decisive8]))}
+    del plan8_64, cols8_64, y_dot_te, y_dot_tr, tr_lab, te_lab, dv8_64
+    emit({"phase": "rsa_checks", "vs_f64_composite": rsa_checks})
+    bad_rdms = [k for k, v in rsa_checks.items() if not v["ok"]]
+    if bad_rdms:
+        fail(f"RSA RDMs disagree with the f64 composite run: {bad_rdms}")
 
     # -- 3. every kernel against its plain version on the card -----------------
     plan = fastcv.prepare(x, folds, lam)
@@ -349,6 +557,58 @@ def main() -> None:
           fold_eval(hr_rows, hs, yr40, yr_te), want_fe, 1e-8)
     if not bool(bad.all()):
         fail("near-singular case did not trip the residual check (vacuous)")
+    # the multi-class and RSA paths' own plans and column blocks: the CV's
+    # (N, 3) indicators, a permutation chunk's (N, 64·3) and the last
+    # chunk's (N, 40·3); the 28 contrast columns and the confusion RDM's
+    # (N, 8) indicators
+
+    def indicators(yb, c):
+        return multiclass.onehot(yb, c, dtype=f32).permute(1, 0, 2).reshape(n, -1).contiguous()
+
+    perms3 = permutation.permutation_indices(SEED, n, N_PERM, device=dev)
+    last3 = N_PERM - (N_PERM - 1) // MC_CHUNK * MC_CHUNK
+    cols8 = rsa_rdm.pair_contrast_columns(y8, c8, f32)
+    for case, pl, yb in (
+            ("multi-class CV", plan3, indicators(y3[None], MC_CLASSES)),
+            (f"multi-class chunk of {MC_CHUNK}", plan3,
+             indicators(y3[perms3[:MC_CHUNK]], MC_CLASSES)),
+            (f"multi-class last chunk of {last3}", plan3,
+             indicators(y3[perms3[-last3:]], MC_CLASSES)),
+            ("rsa contrasts", plan8, cols8),
+            ("rsa confusion", plan8, indicators(y8[None], c8))):
+        t_ = pl.te_idx
+        hb = pl.h[t_[:, :, None], t_[:, None, :]]
+        eb = hat_errors(pl.h, yb)
+        shape = f"K={t_.shape[0]} m={t_.shape[1]} B={yb.shape[1]} f32"
+        check("hat_apply", f"{case} N={n} B={yb.shape[1]} f32", eb,
+              hat_apply_ref(pl.h, yb), TOL[f32])
+        check("foldsolve", f"{case} {shape}", foldsolve(hb, eb[t_], jitter=None),
+              foldsolve_ref(hb, eb[t_]), TOL[f32])
+        if case == "rsa contrasts":       # the same columns without train blocks
+            check("fold_eval", f"{case} {shape} N={n}",
+                  fold_eval(pl.h[t_], hb, yb, yb[t_], jitter=None),
+                  fold_eval_ref(pl.h[t_], hb, yb, yb[t_])[0], TOL[f32])
+    del plan3, perms3
+    # pairdist: the RSA path's condition means, a trial-level RDM of all 787
+    # patterns (f32, f64, bf16), and ragged shapes
+    main_err["pairdist"] = check("pairdist", f"rsa path ({c8}, {p}) f32",
+                                 pairwise_sq_dists(means8), pairwise_sq_dists_ref(means8),
+                                 TOL[f32], pairwise_sq_dists_ref(means8.double()))
+    pd_err = {(c8, "f32"): main_err["pairdist"]}
+    pd_err[(n, "f32")] = check("pairdist", f"trial ({n}, {p}) f32", pairwise_sq_dists(x8),
+                               pairwise_sq_dists_ref(x8), TOL[f32])
+    x8_64 = x8.double()
+    check("pairdist", f"trial ({n}, {p}) f64", pairwise_sq_dists(x8_64),
+          pairwise_sq_dists_ref(x8_64), TOL[f64])
+    x8b = x8.to(torch.bfloat16)
+    check("pairdist", f"trial ({n}, {p}) bf16", pairwise_sq_dists(x8b),
+          pairwise_sq_dists_ref(x8b), TOL[torch.bfloat16], pairwise_sq_dists_ref(x8b.double()))
+    del x8_64, x8b
+    for dt in (f32, f64):
+        for cc, pp in ((5, 30), (33, 500), (130, 1037)):
+            ur = torch.randn(cc, pp, generator=gen, device=dev, dtype=dt)
+            check("pairdist", f"ragged ({cc}, {pp}) {dt}", pairwise_sq_dists(ur),
+                  pairwise_sq_dists_ref(ur), TOL[dt])
     emit({"phase": "kernel_checks", "checks": checks})
     failed = [c for c in checks if not c["ok"]]
     if failed:
@@ -390,17 +650,39 @@ def main() -> None:
          "flops": 2 * kk_ * m_ * n + kk_ * (2 * m_ ** 3 / 3 + 2 * m_ * m_),
          "shape": f"h_rows ({kk_}, {m_}, {n}), y ({n}, 1) f32"},
     ]
-    kernels = []
-    for r in rows:
+    by_path = {"binary": launches, "multiclass": launches_mc, "rsa": launches_rsa}
+
+    def timing(r):
         b_ms, b_by = bound(r["bytes"], r["flops"], torch.float32)
         k_ms = cuda_ms(r["kernel"])
+        return {"ms": k_ms, "kernel_ms": k_ms, "plain_ms": cuda_ms(r["plain"]),
+                "bound_ms": b_ms, "bound_by": b_by, "library_ms": cuda_ms(r["library"]),
+                "shape": r["shape"]}
+
+    kernels = []
+    for r in rows:
         kernels.append({
             "name": r["name"], "route": "cuda", "source": r["source"],
             "replaces": r["replaces"], "launches": launches[r["name"]],
-            "max_abs_err": main_err[r["name"]], "tol": TOL[f32],
-            "ms": k_ms, "kernel_ms": k_ms, "plain_ms": cuda_ms(r["plain"]),
-            "bound_ms": b_ms, "bound_by": b_by, "library_ms": cuda_ms(r["library"]),
-            "shape": r["shape"]})
+            "launches_by_path": {k: v[r["name"]] for k, v in by_path.items()},
+            "max_abs_err": main_err[r["name"]], "tol": TOL[f32], **timing(r)})
+    # pairdist: the RSA path's shape (its launches) and a trial-level RDM
+    shapes = []
+    for u in (means8, x8):
+        cu, pu = u.shape
+        shapes.append({**timing({
+            "kernel": lambda u=u: pairwise_sq_dists(u),
+            "plain": lambda u=u: pairwise_sq_dists_ref(u),
+            "library": lambda u=u: torch.cdist(
+                u, u, compute_mode="use_mm_for_euclid_dist").square(),
+            "bytes": (cu * pu + cu * cu) * f4, "flops": cu * (cu + 1) * pu,
+            "shape": f"U ({cu}, {pu}) f32"}), "max_abs_err": pd_err[(cu, "f32")]})
+    kernels.append({
+        "name": "pairdist", "route": "cuda", "source": "src/repro_torch/csrc/pairdist.cu",
+        "replaces": "src/repro/kernels/pairdist/pairdist.py:55",
+        "launches": launches_rsa["pairdist"],
+        "launches_by_path": {k: v["pairdist"] for k, v in by_path.items()},
+        "tol": TOL[f32], **shapes[0], "shapes": shapes})
     emit({"kernels": kernels, "card": smi})
 
     print(f"nvidia-smi: {smi}", flush=True)

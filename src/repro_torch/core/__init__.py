@@ -5,6 +5,7 @@ from repro_torch.core import (  # noqa: F401
     folds,
     lda,
     metrics,
+    multiclass,
     permutation,
     regression,
 )

@@ -64,7 +64,10 @@ def auc(dvals: torch.Tensor, y: torch.Tensor) -> torch.Tensor:
 
 
 def multiclass_accuracy(pred_labels: torch.Tensor, y: torch.Tensor) -> torch.Tensor:
-    return (pred_labels == y).to(torch.float32).mean()
+    """Share of exact label hits, as a float32 :func:`share` (the reference's
+    mean rounds as count × f32(1/n), not as a true division)."""
+    hits = pred_labels == y
+    return share(hits.sum(), hits.numel())
 
 
 def confusion_matrix(pred_labels: torch.Tensor, y: torch.Tensor,

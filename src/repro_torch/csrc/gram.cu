@@ -14,7 +14,7 @@
 //     contraction is split into `splits` ranges run by separate blocks
 //     (blockIdx.z), each writing a partial tile to a workspace; a second
 //     kernel sums the partials in a fixed order, so results do not depend
-//     on scheduling;
+//     on scheduling (the first pass is upper_gram.cuh, shared with pairdist);
 //   * ragged N and P are masked in the tile loader, so X is never padded
 //     or copied on the card.
 // Tensor cores (bf16 wgmma) and TMA staging are later work; the f32 path
@@ -22,32 +22,9 @@
 //
 // Types: f32 and f64 accumulate in their own type; bf16 input accumulates
 // and writes in f32 (the precision="bf16_gram" build).
-#include "tile.cuh"
+#include "upper_gram.cuh"
 
 namespace repro {
-
-template <typename TIn, typename TAcc>
-__global__ void __launch_bounds__(kThreads)
-gram_partial_kernel(const TIn* __restrict__ x, TAcc* __restrict__ ws, int n, int p, int chunk) {
-  const int bi = blockIdx.y, bj = blockIdx.x;
-  if (bj < bi) return;  // lower tiles are mirrored by the reduce pass
-  const int s = blockIdx.z;
-  const int k_begin = s * chunk;
-  const int k_end = min(p, k_begin + chunk);
-  TAcc acc[4][4];
-  tile_product<TIn, TAcc, true>(x, p, x, p, n, n, bi * kTile, bj * kTile, k_begin, k_end, acc);
-  TAcc* out = ws + static_cast<size_t>(s) * n * n;
-  const int tx = threadIdx.x % 16, ty = threadIdx.x / 16;
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const int r = bi * kTile + ty + 16 * i;
-#pragma unroll
-    for (int j = 0; j < 4; ++j) {
-      const int c = bj * kTile + tx + 16 * j;
-      if (r < n && c < n) out[static_cast<size_t>(r) * n + c] = acc[i][j];
-    }
-  }
-}
 
 template <typename TAcc>
 __global__ void __launch_bounds__(kThreads)
@@ -56,11 +33,7 @@ gram_reduce_kernel(const TAcc* __restrict__ ws, TAcc* __restrict__ g, int n, int
   for (size_t idx = blockIdx.x * static_cast<size_t>(blockDim.x) + threadIdx.x; idx < total;
        idx += static_cast<size_t>(gridDim.x) * blockDim.x) {
     const int i = static_cast<int>(idx / n), j = static_cast<int>(idx % n);
-    const size_t src = (i / kTile <= j / kTile) ? static_cast<size_t>(i) * n + j
-                                                : static_cast<size_t>(j) * n + i;
-    TAcc sum = ws[src];
-    for (int s = 1; s < splits; ++s) sum += ws[static_cast<size_t>(s) * total + src];
-    g[idx] = sum;
+    g[idx] = split_sum(ws, upper_src(i, j, n), total, splits);
   }
 }
 
@@ -68,17 +41,10 @@ template <typename TIn, typename TAcc>
 int gram_launch(const void* x, void* ws, void* g, int n, int p, int splits, void* stream) {
   if (n <= 0 || p <= 0 || splits <= 0) return static_cast<int>(cudaErrorInvalidValue);
   auto st = static_cast<cudaStream_t>(stream);
-  const int tiles = (n + kTile - 1) / kTile;
-  const int chunk = ((p + splits - 1) / splits + kTileK - 1) / kTileK * kTileK;
-  dim3 grid(tiles, tiles, splits);
-  gram_partial_kernel<TIn, TAcc><<<grid, kThreads, 0, st>>>(
-      static_cast<const TIn*>(x), static_cast<TAcc*>(ws), n, p, chunk);
-  cudaError_t err = cudaGetLastError();
+  cudaError_t err = launch_upper_gram_partials<TIn, TAcc>(x, ws, n, p, splits, st);
   if (err != cudaSuccess) return static_cast<int>(err);
   const size_t total = static_cast<size_t>(n) * n;
-  const size_t want = (total + kThreads - 1) / kThreads;
-  const int blocks = static_cast<int>(want < 4096 ? want : 4096);
-  gram_reduce_kernel<TAcc><<<blocks, kThreads, 0, st>>>(
+  gram_reduce_kernel<TAcc><<<stride_blocks(total), kThreads, 0, st>>>(
       static_cast<const TAcc*>(ws), static_cast<TAcc*>(g), n, splits);
   return static_cast<int>(cudaGetLastError());
 }

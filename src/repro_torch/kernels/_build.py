@@ -33,7 +33,7 @@ PACKAGE = Path(__file__).resolve().parent.parent
 CSRC = PACKAGE / "csrc"
 BUILD_ROOT = PACKAGE / "_build"
 
-KERNELS = ("gram", "hat_apply", "foldsolve", "fold_eval")
+KERNELS = ("gram", "hat_apply", "foldsolve", "fold_eval", "pairdist")
 
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
@@ -54,6 +54,8 @@ ARGTYPES = {
     # (h_rows, h_te, y, y_te, t, e, scratch, k, m, n, b, bb, stream)
     "fold_eval": {f"fold_eval_{t}": (_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P)
                   for t in ("f32", "f64")},
+    # (u, ws, d, c, p, splits, stream)
+    "pairdist": {f"pairdist_{t}": (_P, _P, _P, _I, _I, _I, _P) for t in ("f32", "f64", "bf16")},
 }
 
 #: Kernel launches per kernel since the last :func:`reset_launches`.

@@ -9,7 +9,7 @@ with nvcc; ``--noconftest`` skips the root conftest, which configures jax).
 import pytest
 import torch
 
-from repro_torch.core import fastcv, folds
+from repro_torch.core import fastcv, folds, multiclass
 from repro_torch.kernels import _build
 from repro_torch.kernels.fold_eval.ops import fold_eval
 from repro_torch.kernels.fold_eval.ref import fold_eval_ref
@@ -19,6 +19,9 @@ from repro_torch.kernels.gram.ops import gram
 from repro_torch.kernels.gram.ref import gram_ref
 from repro_torch.kernels.hat_apply.ops import hat_errors
 from repro_torch.kernels.hat_apply.ref import hat_apply_ref
+from repro_torch.kernels.pairdist.ops import pairwise_sq_dists
+from repro_torch.kernels.pairdist.ref import pairwise_sq_dists_ref
+from repro_torch.rsa import rdm
 
 pytestmark = pytest.mark.cuda
 
@@ -108,3 +111,64 @@ def test_binary_cv_on_the_card_equals_the_cpu(gen):
     gpu = fastcv.binary_cv(x, y, folds.kfold(60, 5, device="cuda"), 50.0)[0]
     cpu = fastcv.binary_cv(x.cpu(), y.cpu(), folds.kfold(60, 5, device="cpu"), 50.0)[0]
     _close(gpu.cpu(), cpu, 1e-9)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64, torch.bfloat16])
+@pytest.mark.parametrize("c,p", [(2, 7), (5, 30), (8, 76000), (33, 500), (130, 1037),
+                                 (200, 5000)])
+def test_pairdist_kernel(gen, dtype, c, p):
+    """Against the plain version (of the f32 cast, for bf16): ≤ 1e-5 / 1e-9 of
+    max |D|; the kernel's diagonal is exactly 0 and D exactly symmetric.
+    (A single pattern has only the diagonal, where the plain version's
+    rounding is all of its max |D|: that case is checked on its own.)"""
+    u = torch.randn(c, p, generator=gen, device="cuda", dtype=torch.float32).to(dtype)
+    got = _launched("pairdist", lambda: pairwise_sq_dists(u))
+    want = pairwise_sq_dists_ref(u)
+    assert got.dtype == (torch.float32 if dtype == torch.bfloat16 else dtype)
+    _close(got, want, TOL[got.dtype])
+    assert bool((got >= 0).all()) and torch.equal(got, got.T)
+    assert torch.equal(torch.diagonal(got), torch.zeros(c, device="cuda", dtype=got.dtype))
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64, torch.bfloat16])
+def test_pairdist_kernel_single_pattern_is_exactly_zero(gen, dtype):
+    u = torch.randn(1, 7, generator=gen, device="cuda", dtype=torch.float32).to(dtype)
+    got = _launched("pairdist", lambda: pairwise_sq_dists(u))
+    assert got.shape == (1, 1) and float(got) == 0.0
+
+
+def test_pairdist_kernel_refuses_other_dtypes(gen):
+    with pytest.raises(TypeError, match="unsupported dtype"):
+        pairwise_sq_dists(torch.zeros(3, 4, device="cuda", dtype=torch.float16))
+
+
+def _multiclass_problem(gen, n=90, p=400, c=3):
+    y = torch.arange(n, device="cuda") % c
+    means = torch.randn(c, p, generator=gen, device="cuda", dtype=torch.float64)
+    x = torch.randn(n, p, generator=gen, device="cuda", dtype=torch.float64) + 0.3 * means[y]
+    return x, y
+
+
+def test_multiclass_cv_on_the_card_equals_the_cpu(gen):
+    x, y = _multiclass_problem(gen)
+    f_gpu = folds.stratified_kfold(y, 5, seed=0, device="cuda")
+    f_cpu = folds.stratified_kfold(y, 5, seed=0, device="cpu")
+    gpu, _ = multiclass.analytical_cv_multiclass(x, y, f_gpu, 3, 50.0)
+    cpu, _ = multiclass.analytical_cv_multiclass(x.cpu(), y.cpu(), f_cpu, 3, 50.0)
+    assert torch.equal(gpu.cpu(), cpu)
+    std, _ = multiclass.standard_cv_multiclass(x, y, f_gpu, 3, 50.0)
+    assert torch.equal(gpu, std)
+
+
+def test_rdm_binary_on_the_card_equals_the_cpu(gen):
+    x, y = _multiclass_problem(gen, n=96, c=6)
+    f_gpu = folds.stratified_kfold(y, 4, seed=0, device="cuda")
+    f_cpu = folds.stratified_kfold(y, 4, seed=0, device="cpu")
+    for dissimilarity in ("accuracy", "contrast"):
+        gpu = rdm.rdm_binary(x, y, f_gpu, 6, 50.0, dissimilarity=dissimilarity)
+        cpu = rdm.rdm_binary(x.cpu(), y.cpu(), f_cpu, 6, 50.0, dissimilarity=dissimilarity)
+        _close(gpu.cpu(), cpu, 1e-9)
+    before = _build.LAUNCHES["fold_eval"]
+    gpu = rdm.rdm_binary(x, y, f_gpu, 6, 50.0, adjust_bias=False)
+    assert _build.LAUNCHES["fold_eval"] > before
+    _close(gpu.cpu(), rdm.rdm_binary(x.cpu(), y.cpu(), f_cpu, 6, 50.0, adjust_bias=False), 1e-9)

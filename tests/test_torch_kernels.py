@@ -17,6 +17,9 @@ from repro.kernels.foldsolve.ops import foldsolve as ref_foldsolve
 from repro.kernels.gram.ops import centered_gram_xla as ref_centered_gram_xla
 from repro.kernels.gram.ops import gram as ref_gram
 from repro.kernels.hat_apply.ops import hat_errors as ref_hat_errors
+from repro.kernels.pairdist.ops import pairwise_sq_dists as ref_pairwise_sq_dists
+from repro.kernels.pairdist.ref import pairwise_sq_dists_ref as ref_pairwise_sq_dists_ref
+from repro_torch.kernels import _build
 from repro_torch.kernels.common import cdiv, default_fused
 from repro_torch.kernels.fold_eval.ops import fold_eval
 from repro_torch.kernels.foldsolve.foldsolve import SMEM_BYTES, aug_in_shared, block_cols
@@ -25,6 +28,9 @@ from repro_torch.kernels.gram.gram import gram_splits
 from repro_torch.kernels.gram.ops import (PRECISIONS, centered_gram, centered_gram_plain,
                                           check_precision, gram)
 from repro_torch.kernels.hat_apply.ops import hat_errors
+from repro_torch.kernels.pairdist import pairdist as pairdist_launch
+from repro_torch.kernels.pairdist.ops import pairwise_sq_dists
+from repro_torch.kernels.pairdist.ref import pairwise_sq_dists_ref
 
 TOL = {np.float64: 1e-9, np.float32: 1e-5}
 
@@ -242,6 +248,56 @@ def test_fold_eval_jitter_near_singular():
     assert np.max(np.abs(got - want)) / np.max(np.abs(want)) < 1e-8
 
 
+# ------------------------------------------------------------ pairdist ----
+
+@pytest.mark.parametrize("c,p", [(5, 30), (8, 128), (33, 500), (17, 1000)])
+@pytest.mark.parametrize("dtype", [np.float64, np.float32])
+def test_pairdist_matches_reference(c, p, dtype):
+    """The reference's own sweep: ≤ 1e-5 (f32) / 1e-9 (f64) of max |D|; every
+    entry ≥ 0 and the diagonal 0 within the same tolerance (its reference
+    asserts)."""
+    u = _rng(c * p).normal(size=(c, p)).astype(dtype)
+    got = pairwise_sq_dists(_t(u))
+    assert got.dtype == _t(u).dtype
+    _close(got, ref_pairwise_sq_dists(jnp.asarray(u), interpret=True), dtype)
+    d = got.numpy()
+    assert np.all(d >= 0.0)
+    assert np.max(np.abs(np.diag(d))) <= TOL[dtype] * np.max(np.abs(d))
+
+
+def test_pairdist_bf16_accumulates_in_f32():
+    """bf16 in, f32 out: held against the plain version of the f32 cast
+    (the reference's oracle, which casts first)."""
+    u = torch.from_numpy(_rng(5).normal(size=(9, 300)).astype(np.float32)).to(torch.bfloat16)
+    got = pairwise_sq_dists(u)
+    assert got.dtype == torch.float32
+    assert torch.equal(got, pairwise_sq_dists_ref(u.float()))
+    _close(got, ref_pairwise_sq_dists_ref(jnp.asarray(u.float().numpy()).astype(jnp.bfloat16)),
+           np.float32)
+
+
+@pytest.mark.parametrize("dtype", [torch.float16, torch.int32, torch.complex64])
+def test_pairdist_rejects_other_dtypes(dtype):
+    with pytest.raises(TypeError, match="unsupported dtype"):
+        pairwise_sq_dists(torch.zeros(3, 4, dtype=dtype))
+    with pytest.raises(ValueError, match="2-D"):
+        pairwise_sq_dists(torch.zeros(3, 4, 5))
+
+
+def test_pairdist_cpu_and_meta_never_reach_the_build(monkeypatch):
+    """A CPU tensor takes the plain version; a tensor on any other device
+    than CUDA is refused before the kernel's build or launch."""
+    def refuse(*a, **k):
+        raise AssertionError("_build reached")
+    monkeypatch.setattr(_build, "build", refuse)
+    monkeypatch.setattr(_build, "load", refuse)
+    monkeypatch.setattr(_build, "launch", refuse)
+    u = _t(_rng(1).normal(size=(6, 40)))
+    assert torch.equal(pairwise_sq_dists(u), pairwise_sq_dists_ref(u))
+    with pytest.raises(ValueError, match="CUDA"):
+        pairdist_launch.pairdist_cuda(torch.zeros(6, 40, device="meta"))
+
+
 # ------------------------------------------------------------ dispatch ----
 
 def test_common_helpers():
@@ -255,7 +311,8 @@ def test_common_helpers():
     lambda t: hat_errors(t((6, 6)), t((6, 2))),
     lambda t: foldsolve(t((2, 3, 3)), t((2, 3, 1)), jitter=None),
     lambda t: fold_eval(t((2, 3, 6)), t((2, 3, 3)), t((6, 1)), t((2, 3, 1)), jitter=None),
-], ids=["gram", "hat_apply", "foldsolve", "fold_eval"])
+    lambda t: pairwise_sq_dists(t((5, 30))),
+], ids=["gram", "hat_apply", "foldsolve", "fold_eval", "pairdist"])
 def test_non_cpu_tensor_never_takes_the_plain_version(call):
     """Only a CPU tensor reaches the plain version: any other device goes to
     the kernel route, which refuses what is not a CUDA tensor."""

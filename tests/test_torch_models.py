@@ -111,9 +111,22 @@ def test_metrics_equal_reference():
     np.testing.assert_array_equal(
         metrics.confusion_matrix(torch.tensor(pred), torch.tensor(true), 3).numpy(),
         np.asarray(ref_metrics.confusion_matrix(jnp.asarray(pred), jnp.asarray(true), 3)))
-    assert float(metrics.multiclass_accuracy(torch.tensor(pred), torch.tensor(true))) == \
-        pytest.approx(float(ref_metrics.multiclass_accuracy(jnp.asarray(pred),
-                                                            jnp.asarray(true))))
+    got = metrics.multiclass_accuracy(torch.tensor(pred), torch.tensor(true))
+    want = ref_metrics.multiclass_accuracy(jnp.asarray(pred), jnp.asarray(true))
+    assert got.dtype == torch.float32 and float(got) == float(want)
+
+
+@pytest.mark.parametrize("n", [91, 120, 192, 780, 787, 49920])
+def test_multiclass_accuracy_bitwise_equals_reference(n):
+    """The share of hits rounds as the reference's mean (count × f32(1/n)),
+    bit for bit, over a sweep of hit counts (780 = K·m at N = 787, K = 10)."""
+    hits_counts = np.unique(np.linspace(0, n, num=min(n + 1, 97)).astype(int))
+    true = np.zeros(n, dtype=np.int32)
+    for hits in hits_counts:
+        pred = np.where(np.arange(n) < hits, 0, 1).astype(np.int32)
+        got = metrics.multiclass_accuracy(torch.tensor(pred), torch.tensor(true))
+        want = np.asarray(ref_metrics.multiclass_accuracy(jnp.asarray(pred), jnp.asarray(true)))
+        assert got.numpy().tobytes() == want.tobytes(), (n, hits)
 
 
 # ------------------------------------------------------------ baselines ----
