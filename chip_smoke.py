@@ -4,10 +4,10 @@ Run from the repository root:
 
     python3 chip_smoke.py
 
-It builds the five CUDA kernels (gram, hat_apply, foldsolve, fold_eval,
-pairdist) from ``src/repro_torch/csrc`` with nvcc, all at once, and drives
-three paths at the paper's MEG/EEG size (787 trials, P = 76,000 features,
-10-fold CV) through the package's public entry points:
+It builds the six CUDA kernels (gram, hat_apply, foldsolve, fold_eval,
+pairdist, flash_attention) from ``src/repro_torch/csrc`` with nvcc, all at
+once, and drives three paths at the paper's MEG/EEG size (787 trials,
+P = 76,000 features, 10-fold CV) through the package's public entry points:
 
 * binary: binary LDA with analytical CV, ridge CV, and a 1000-draw
   permutation test (Algorithm 1);
@@ -17,18 +17,38 @@ three paths at the paper's MEG/EEG size (787 trials, P = 76,000 features,
 * RSA: 8-condition cross-validated RDMs (pairwise accuracy and contrast
   with and without the bias adjust, confusion), the condition-mean
   Euclidean RDM, and Spearman model scoring with a 1000-draw
-  condition-permutation null.
+  condition-permutation null;
+
+and two paths of the LLM substrate at gemma2-2b's full width and depth
+(26 layers, d_model 2,304, 8/4 heads of 256, vocabulary 256,000, bf16,
+random weights from a seed):
+
+* lm_serve: ``launch.serve.generate`` (a 4 × 2,048-token prefill, then 64
+  greedy decode steps; then 16 more steps timed and 16 under
+  torch.profiler for decode's device idle share), an 8,192-token
+  ``prefill_step`` (the local layers' window masks and skips), the same
+  model with the plain attention swapped in at both lengths, and decode
+  against the forward over 256 tokens: in bf16, and on an f32 copy of the
+  weights at gemma2's window and at a 64-token window that the replay
+  wraps four times (the local layers' ring buffer);
+* lm_probe: ``launch.probe`` on 2 × 192 sequences of 128 tokens: the
+  residual stream after each of the 13 repeats, an analytical-CV
+  permutation test (K = 6, T = 1,000, f64, λ = tr(G_c)/N of each point) on
+  each.
 
 Each path's launch counts are reset before it and read after it; every
-kernel the path should run must have launched. Every kernel is held
-against its plain PyTorch version on the card (at each path's own shapes
-and column blocks, at ragged shapes, at f64, bf16, m = 1 and m = 393
-folds, a near-singular fold that forces the jitter retry, and a
-trial-level RDM of 787 patterns), and the results are checked: against
-the Cholesky composite and against f64 composite runs (binary decision
-values, multi-class predictions, the RSA path's accuracy, contrast and
-confusion RDMs), and against retraining per fold (binary at P = 3,800,
-multi-class at P = 1,900).
+kernel the path should run must have launched (flash_attention exactly
+once per layer in each prefill and forward, never in decode). Every kernel
+is held against its plain PyTorch version on the card (at each path's own
+shapes and column blocks, at ragged shapes, at f64, bf16, m = 1 and m = 393
+folds, a near-singular fold that forces the jitter retry, a trial-level RDM
+of 787 patterns, and flash_attention at the LM paths' shapes and strided
+layout, at head widths 128 and 64, a ragged length and f32 I/O), and the results are
+checked: against the Cholesky composite and against f64 composite runs
+(binary decision values, multi-class predictions, the RSA path's accuracy,
+contrast and confusion RDMs, a probe point's decision values), against
+retraining per fold (binary at P = 3,800, multi-class at P = 1,900), and
+the LM's logits against the plain-attention model and its own forward.
 
 Each phase prints one JSON line. The line before the last is the card's
 name and power limit from nvidia-smi; the last line is
@@ -38,6 +58,7 @@ line. Without a CUDA device, or without the package beside it, it fails.
 
 from __future__ import annotations
 
+import dataclasses
 import json
 import statistics
 import subprocess
@@ -46,6 +67,7 @@ import time
 from pathlib import Path
 
 import torch
+import torch.nn.functional as F
 
 sys.path.insert(0, str(Path(__file__).resolve().parent / "src"))
 
@@ -75,6 +97,34 @@ TOL_DVALS_F32 = 2e-3
 TOL_RDM_F32 = 1e-4
 # Analytical CV against retraining per fold, in f64 (the paper's exactness).
 TOL_EXACT = 1e-8
+# The LLM substrate at gemma2-2b's full width and depth (bf16).
+LM_ARCH = "gemma2-2b"
+LM_BATCH, LM_PROMPT, LM_DECODE = 4, 2048, 64      # 64 greedy decode steps
+LM_LONG = 8192                                     # q − k reaches 8,191 > the 4,096 window
+LM_REPLAY = 256                                    # decode replay against the forward
+LM_RING_WINDOW = 64                                # a window the 256-token replay wraps 4×
+LM_IDLE_STEPS = 16                                 # decode steps timed, then profiled
+# λ per point = tr(G_c)/N of that point's features (the MEG/EEG paths' rule):
+# the residual stream's scale grows about 19× from the first to the last point
+PROBE_PER_CLASS, PROBE_SEQ, PROBE_FOLDS = 192, 128, 6
+# flash_attention against attention_ref: f32 I/O at 2e-5 of max |out| (the
+# same f32 softmax summed in another order); bf16 I/O within 2 bf16 ulps of
+# each element (both round an f32 result once, and ~1e-7 before rounding can
+# move it by one ulp), the ulp taken at no less than 2^-8 of max |out|
+# (smaller outputs come from cancellation).
+TOL_ATTN_F32 = 2e-5
+TOL_ATTN_BF16_ULPS = 2.0
+# gemma2-2b's logits, two bf16 evaluations of one model (the flash kernel
+# against attention_ref; decode against the forward): each strays from the
+# same weights in f32 by E, the plain bf16 model's distance from the f32
+# one, measured in the run; two such evaluations lie within 2E of each other.
+TOL_LM_YARDSTICK = 2.0
+# The same comparisons on the f32 copy of the weights (the kernel against
+# attention_ref; decode against the kernel's forward, at the real window and
+# at one the replay wraps): the attention outputs differ by ~3e-7 of their
+# scale, and 26 layers carry a bf16 ulp (4e-3) to ~1.5e-2 of max |logit|
+# (measured on an H100), so ~1e-6 here; 1e-4 of max |logit|.
+TOL_LM_F32 = 1e-4
 
 
 def emit(obj) -> None:
@@ -141,6 +191,266 @@ def timed(fn):
     return out, time.perf_counter() - t0
 
 
+def bf16_ulps(got: torch.Tensor, want: torch.Tensor, floor: bool = True) -> tuple:
+    """(max |got − want| in bf16 ulps of |want|, |want| at that element); with
+    ``floor`` the ulp is taken at no less than 2^-8 of max |want|."""
+    got, want = got.double().flatten(), want.double().flatten()
+    mag = want.abs().clamp(min=float(want.abs().max()) / 256 if floor else 2.0 ** -126)
+    ulps = (got - want).abs() / torch.exp2(torch.floor(torch.log2(mag)) - 7)
+    i = int(ulps.argmax())
+    return float(ulps[i]), float(want[i].abs())
+
+
+def decode_replay(model, tokens, cfg, dev) -> tuple:
+    """Decode every position of ``tokens`` (1, T) from empty caches of T
+    slots: (logits (1, T, V), flash_attention launches meanwhile)."""
+    from repro_torch.kernels import _build
+    from repro_torch.models import model as M
+    from repro_torch.models import transformer as T
+
+    caches = T.init_trunk_cache(cfg, 1, tokens.shape[1], dev)
+    before = _build.LAUNCHES["flash_attention"]
+    logits = torch.stack([M.decode_step(model, tokens[:, t:t + 1], t, caches, cfg)[0][:, 0]
+                          for t in range(tokens.shape[1])], dim=1)
+    return logits, _build.LAUNCHES["flash_attention"] - before
+
+
+def decode_idle_share(model, prompts, cfg) -> dict:
+    """Device idle share of serve's greedy decode: LM_IDLE_STEPS steps on the
+    host clock, then as many under torch.profiler for the device's busy
+    time (the union of its kernel and copy intervals)."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.launch import serve
+    from repro_torch.models import model as M
+
+    b, s = prompts.shape
+    last, pre = M.prefill_step(model, {"tokens": prompts}, cfg)
+    caches = serve.place_prefill(cfg, pre, b, s + 2 * LM_IDLE_STEPS)
+    del pre
+    state = {"tok": last.argmax(dim=-1)[:, None], "pos": s}
+
+    def steps():
+        for _ in range(LM_IDLE_STEPS):
+            logits, _ = M.decode_step(model, state["tok"], state["pos"], caches, cfg)
+            state["tok"] = logits[:, -1].argmax(dim=-1)[:, None]
+            state["pos"] += 1
+        torch.cuda.synchronize()
+
+    _, wall = timed(steps)
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        steps()
+    device = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
+    busy_us, end, by_name = 0.0, float("-inf"), {}
+    for e in sorted(device, key=lambda e: e.time_range.start):
+        busy_us += max(0.0, e.time_range.end - max(e.time_range.start, end))
+        end = max(end, e.time_range.end)
+        by_name[e.name] = by_name.get(e.name, 0.0) + e.time_range.elapsed_us()
+    out = {"batch": b, "steps": LM_IDLE_STEPS, "wall_ms_per_step": wall / LM_IDLE_STEPS * 1e3,
+           "device_events": len(device)}
+    if not device:
+        return {**out, "idle_share": "not measured (the profiler saw no device events)"}
+    busy_ms = busy_us / 1e3 / LM_IDLE_STEPS
+    top = sorted(by_name.items(), key=lambda kv: -kv[1])[:6]
+    return {**out, "device_busy_ms_per_step": busy_ms,
+            "idle_share": 1.0 - busy_ms / out["wall_ms_per_step"],
+            "top_device_ms_per_step": [[name[:100], us / 1e3 / LM_IDLE_STEPS]
+                                       for name, us in top]}
+
+
+def attention_pairs(s: int, window, causal: bool = True) -> int:
+    """Reachable (q, k) pairs of self-attention over S positions."""
+    if not causal:
+        return s * s if window is None else sum(min(s, q + window) for q in range(s))
+    if window is None:
+        return s * (s + 1) // 2
+    return sum(min(q + 1, window) for q in range(s))
+
+
+def attention_tiles(s: int, window, causal: bool = True) -> int:
+    """Key tiles the flash kernel visits per (b·Hq), over its 64-row query
+    tiles (the kernel's loop bounds, ``key_tile_range``)."""
+    from repro_torch.kernels.flash_attention.flash_attention import TILE, key_tile_range
+    return sum(hi - lo + 1 for lo, hi in (key_tile_range(q0, s, window, causal)
+                                          for q0 in range(0, s, TILE)))
+
+
+def lm_serve_phase(dev):
+    """gemma2-2b at full width and depth: serve (prefill + greedy decode), a
+    long prefill, the flash kernel against attention_ref in the same model,
+    and decode against the forward."""
+    from repro_torch.configs.base import get_config
+    from repro_torch.kernels import _build
+    from repro_torch.kernels.flash_attention.ref import attention_ref
+    from repro_torch.launch import serve
+    from repro_torch.models import layers
+    from repro_torch.models import model as M
+
+    cfg = get_config(LM_ARCH)
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(SEED)
+    model, t_init = timed(lambda: M.init_params(cfg, generator=gen, device=dev))
+    prompts = torch.randint(0, cfg.vocab_size, (LM_BATCH, LM_PROMPT), generator=gen, device=dev)
+    long_prompt = torch.randint(0, cfg.vocab_size, (1, LM_LONG), generator=gen, device=dev)
+
+    # 1. the serving path: prefill, then 64 greedy decode steps
+    _build.reset_launches()
+    (ids, st), t_serve = timed(lambda: serve.generate(model, prompts, LM_DECODE + 1, cfg))
+    launches = dict(_build.LAUNCHES)
+    idle = decode_idle_share(model, prompts, cfg)
+    # 2. an 8,192-token prefill: the local layers mask by window and skip tiles
+    torch.cuda.reset_peak_memory_stats()
+    _build.reset_launches()
+    (last_long, caches_long), t_long = timed(
+        lambda: M.prefill_step(model, {"tokens": long_prompt}, cfg))
+    launches_long = dict(_build.LAUNCHES)
+    peak_long = torch.cuda.max_memory_allocated()
+    del caches_long
+    # 3. the same weights on attention_ref, at both lengths, and the yardstick:
+    # the same weights in f32 (plain attention), also run on the kernel
+    flash = {"short": M.prefill_step(model, {"tokens": prompts}, cfg)[0], "long": last_long}
+    replay = long_prompt[:, :LM_REPLAY]
+    full, _, _ = M.forward(model, replay, cfg)
+    cfg32 = dataclasses.replace(cfg, dtype="float32", param_dtype="float32")
+    model32 = M.Model(cfg32, dev)
+    for p32, p in zip(model32.parameters(), model.parameters(), strict=True):
+        p32.copy_(p)
+    flash32 = {"short": M.prefill_step(model32, {"tokens": prompts}, cfg32)[0],
+               "long": M.prefill_step(model32, {"tokens": long_prompt}, cfg32)[0]}
+    layers_flash = layers.flash_attention
+    layers.flash_attention = attention_ref
+    plain = {"short": M.prefill_step(model, {"tokens": prompts}, cfg)[0],
+             "long": M.prefill_step(model, {"tokens": long_prompt}, cfg)[0]}
+    plain32 = {"short": M.prefill_step(model32, {"tokens": prompts}, cfg32)[0],
+               "long": M.prefill_step(model32, {"tokens": long_prompt}, cfg32)[0],
+               "replay": M.forward(model32, replay, cfg32)[0]}
+    layers.flash_attention = layers_flash
+    vs_ref = {}
+    for key, name in (("short", f"{LM_BATCH}x{LM_PROMPT}"), ("long", f"1x{LM_LONG}")):
+        err, scale = rel_err(flash[key], plain[key])
+        yard = rel_err(plain[key], plain32[key])[0]
+        err32, scale32 = rel_err(flash32[key], plain32[key])
+        tol = max(TOL_LM_YARDSTICK * yard, TOL_LM_F32 * scale)
+        vs_ref[name] = {"max_abs_err": err, "scale": scale, "plain_vs_f32": yard,
+                        "flash_vs_f32": rel_err(flash[key], plain32[key])[0], "tol": tol,
+                        "f32_flash_vs_f32_plain": err32, "f32_scale": scale32,
+                        "f32_tol": TOL_LM_F32 * scale32,
+                        "ok": (err <= tol and err32 <= TOL_LM_F32 * scale32
+                               and bool(torch.isfinite(flash[key]).all()))}
+    del flash, flash32, plain
+    # 4. the port's decode against its own forward, 256 tokens: bf16 against
+    # the yardstick; f32 at 1e-4, at gemma2's window and at one the replay
+    # wraps (the local layers' ring buffer)
+    dec, decode_flash = decode_replay(model, replay, cfg, dev)
+    e_dec, s_dec = rel_err(dec, full)
+    yard_dec = rel_err(full, plain32["replay"])[0]
+    tol_dec = max(TOL_LM_YARDSTICK * yard_dec, TOL_LM_F32 * s_dec)
+    agree = float((dec.argmax(-1) == full.argmax(-1)).float().mean())
+    del full, dec, plain32
+    dec_f32 = {}
+    for name, c32 in (("f32", cfg32),
+                      (f"f32 window {LM_RING_WINDOW}",
+                       dataclasses.replace(cfg32, local_window=LM_RING_WINDOW))):
+        full32 = M.forward(model32, replay, c32)[0]
+        dec32, flash_n = decode_replay(model32, replay, c32, dev)
+        e32, s32 = rel_err(dec32, full32)
+        decode_flash += flash_n
+        dec_f32[name] = {"window": c32.local_window, "max_abs_err": e32, "scale": s32,
+                         "tol": TOL_LM_F32 * s32,
+                         "argmax_agreement": float((dec32.argmax(-1) == full32.argmax(-1))
+                                                   .float().mean()),
+                         "ok": e32 <= TOL_LM_F32 * s32 and bool(torch.isfinite(dec32).all())}
+        del full32, dec32
+    del model32
+
+    out = {"phase": "lm_serve", "arch": cfg.name, "layers": cfg.num_layers,
+           "d_model": cfg.d_model, "heads": [cfg.num_heads, cfg.num_kv_heads],
+           "head_dim": cfg.head_dim, "vocab": cfg.vocab_size, "dtype": cfg.dtype,
+           "params": M.count_params(model), "seconds_init": t_init,
+           "serve": {"batch": LM_BATCH, "prompt": LM_PROMPT, "decode_steps": LM_DECODE,
+                     "prefill_s": st["prefill_s"], "decode_s": st["decode_s"],
+                     "decode_tokens_per_s": st["tokens_per_s"],
+                     "cache_mib": st["cache_bytes"] / 2**20, "seconds": t_serve,
+                     "first_ids": ids.flatten()[:16].tolist(), "launches": launches},
+           "long_prefill": {"tokens": LM_LONG, "seconds": t_long, "launches": launches_long,
+                            "peak_memory_gib": peak_long / 2**30,
+                            "logits_gib": LM_LONG * cfg.vocab_size * 4 / 2**30},
+           "vs_attention_ref": vs_ref,
+           "decode_vs_forward": {"tokens": LM_REPLAY, "max_abs_err": e_dec, "scale": s_dec,
+                                 "forward_vs_f32": yard_dec, "tol": tol_dec,
+                                 "argmax_agreement": agree, "flash_launches": decode_flash,
+                                 **dec_f32},
+           "decode_idle": idle}
+    emit(out)
+    n = cfg.num_layers
+    if launches["flash_attention"] != n or launches_long["flash_attention"] != n:
+        fail(f"flash_attention launches per prefill: {launches['flash_attention']} and "
+             f"{launches_long['flash_attention']}, want {n} (and none in decode)")
+    if decode_flash:
+        fail(f"decode launched flash_attention {decode_flash} times")
+    if ids.shape != (LM_BATCH, LM_DECODE + 1) or not bool(((ids >= 0) &
+                                                           (ids < cfg.vocab_size)).all()):
+        fail("generated ids out of shape or range")
+    bad = [name for name, v in vs_ref.items() if not v["ok"]]
+    if bad:
+        fail(f"last-position logits disagree with the attention_ref model at {bad}")
+    if e_dec > tol_dec:
+        fail("decode disagrees with the forward")
+    bad = [name for name, v in dec_f32.items() if not v["ok"]]
+    if bad:
+        fail(f"f32 decode disagrees with the f32 forward at {bad}")
+    return model, cfg, launches
+
+
+def lm_probe_phase(model, cfg, dev):
+    """launch.probe at full width: 13 points of the residual stream, an
+    analytical-CV permutation test on each (f64)."""
+    from repro_torch.core import fastcv, folds as folds_mod
+    from repro_torch.kernels import _build
+    from repro_torch.launch import probe
+
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(SEED + 1)
+    tokens, y = probe.band_tokens(cfg, PROBE_PER_CLASS, PROBE_SEQ, gen)
+    n = tokens.shape[0]
+    folds = folds_mod.kfold(n, PROBE_FOLDS, seed=SEED, device=dev)
+    _build.reset_launches()
+    feats, t_feats = timed(lambda: probe.layerwise_hidden_states(model, tokens, cfg))
+    lams = [lam_rule(f.double()) for f in feats]
+    results, t_probe = timed(lambda: probe.probe_points(feats, y, folds, lams, N_PERM))
+    launches = dict(_build.LAUNCHES)
+    # point 0 on the kernel route against the f64 composite route
+    plan = fastcv.prepare(feats[0].double(), folds, lams[0])
+    dv_k = fastcv.binary_dvals(plan, y, fused=True)
+    dv_c = fastcv.binary_dvals(plan, y, fused=False)
+    e_dv, s_dv = rel_err(dv_k, dv_c)
+    emit({"phase": "lm_probe", "arch": cfg.name, "N": n, "seq": PROBE_SEQ,
+          "points": feats.shape[0], "P": feats.shape[2], "dtype": "float64", "K": PROBE_FOLDS,
+          "lam": lams, "n_perm": N_PERM,
+          "accuracy": [float(r.observed) for r in results],
+          "p_value": [float(r.p) for r in results],
+          "null_mean": [float(r.null.mean()) for r in results],
+          "kernel_vs_composite_point0": {"max_abs_err": e_dv, "scale": s_dv,
+                                         "tol": TOL[torch.float64]},
+          "seconds": {"hidden_states": t_feats, "probes": t_probe}, "launches": launches})
+    if feats.shape != (cfg.num_layers // len(cfg.layer_pattern), n, cfg.d_model):
+        fail(f"probe features of shape {tuple(feats.shape)}")
+    if not bool(torch.isfinite(feats).all()):
+        fail("non-finite probe features")
+    for r in results:
+        if r.null.shape != (N_PERM,) or not bool(torch.isfinite(r.null).all()) \
+                or not 0.0 < float(r.p) <= 1.0:
+            fail("probe permutation results out of shape or range")
+    if launches["flash_attention"] != cfg.num_layers:
+        fail(f"probe forward launched flash_attention {launches['flash_attention']} times, "
+             f"want {cfg.num_layers}")
+    expect_launches("probe", launches, ("gram", "hat_apply", "foldsolve"))
+    if e_dv > TOL[torch.float64] * s_dv:
+        fail("probe decision values disagree with the f64 composite route")
+    return launches
+
+
 def main() -> None:
     if not torch.cuda.is_available():
         fail("torch.cuda.is_available() is false: this script needs an NVIDIA GPU")
@@ -157,6 +467,8 @@ def main() -> None:
     from repro_torch.kernels.gram.ref import gram_ref
     from repro_torch.kernels.hat_apply.ops import hat_errors
     from repro_torch.kernels.hat_apply.ref import hat_apply_ref
+    from repro_torch.kernels.flash_attention.ops import flash_attention
+    from repro_torch.kernels.flash_attention.ref import attention_ref
     from repro_torch.kernels.pairdist.ops import pairwise_sq_dists
     from repro_torch.kernels.pairdist.ref import pairwise_sq_dists_ref
     from repro_torch.rsa import compare as rsa_compare
@@ -453,6 +765,11 @@ def main() -> None:
     if bad_rdms:
         fail(f"RSA RDMs disagree with the f64 composite run: {bad_rdms}")
 
+    # -- 7. the LLM substrate: serving and layer probes at gemma2-2b width -----
+    lm_model, lm_cfg, launches_serve = lm_serve_phase(dev)
+    launches_probe = lm_probe_phase(lm_model, lm_cfg, dev)
+    del lm_model
+
     # -- 3. every kernel against its plain version on the card -----------------
     plan = fastcv.prepare(x, folds, lam)
     te = plan.te_idx
@@ -609,6 +926,58 @@ def main() -> None:
             ur = torch.randn(cc, pp, generator=gen, device=dev, dtype=dt)
             check("pairdist", f"ragged ({cc}, {pp}) {dt}", pairwise_sq_dists(ur),
                   pairwise_sq_dists_ref(ur), TOL[dt])
+    # flash_attention: the LM paths' own shapes and layout (gemma2-2b's serve
+    # prefill of 4 × 2,048, its local and global layers at 8,192 tokens, the
+    # probe's 384 × 128; q/k/v as (B, H, S, D) views of (B, S, H, D) memory,
+    # as attention_full passes them), starcoder2's and minicpm's head widths,
+    # a ragged length, f32 I/O, and the inputs of the cuda-marked test
+    # test_flash_attention_kernel[200-None-None-64-bf16] (a seed-0 generator)
+    bf16 = torch.bfloat16
+    attn_cases = [
+        ("lm_serve prefill", 1, LM_BATCH, 8, 4, LM_PROMPT, 256, bf16, 4096, 50.0),
+        ("lm_serve local", 1, 1, 8, 4, LM_LONG, 256, bf16, 4096, 50.0),
+        ("lm_serve global", 1, 1, 8, 4, LM_LONG, 256, bf16, None, 50.0),
+        ("lm_probe", 1, 2 * PROBE_PER_CLASS, 8, 4, PROBE_SEQ, 256, bf16, 4096, 50.0),
+        ("starcoder2 D=128", 0, 1, 24, 2, 2048, 128, bf16, None, None),
+        ("minicpm D=64", 0, 1, 36, 36, 2048, 64, bf16, None, None),
+        ("ragged S=1000", 0, 2, 8, 4, 1000, 256, bf16, 100, 50.0),
+        ("f32 I/O", 0, 1, 8, 4, 2048, 256, f32, 512, 50.0),
+        ("f32 I/O ragged D=64", 0, 2, 6, 2, 777, 64, f32, None, 20.0),
+        ("cuda test inputs", 0, 2, 8, 4, 200, 64, bf16, None, None),
+    ]
+    attn_inputs = {}
+    for case, strided, b_, hq, hkv, s_, d_, dt, win, cap in attn_cases:
+        g = gen
+        if case == "cuda test inputs":
+            g = torch.Generator(device=dev)
+            g.manual_seed(0)
+        if strided:
+            qa, ka, va = (torch.randn(b_, s_, h, d_, generator=g, device=dev).to(dt)
+                          .transpose(1, 2) for h in (hq, hkv, hkv))
+        else:
+            qa = torch.randn(b_, hq, s_, d_, generator=g, device=dev).to(dt)
+            ka, va = (torch.randn(b_, hkv, s_, d_, generator=g, device=dev).to(dt)
+                      for _ in range(2))
+        kw = dict(scale=d_ ** -0.5, window=win, softcap=cap)
+        got, want = flash_attention(qa, ka, va, **kw), attention_ref(qa, ka, va, **kw)
+        err, scale = rel_err(got, want)
+        row = {"kernel": "flash_attention", "case": f"{case} B={b_} Hq={hq} Hkv={hkv} S={s_} "
+               f"D={d_} window={win} softcap={cap} {dt}",
+               "layout": "(B, S, H, D) viewed as (B, H, S, D)" if strided else "(B, H, S, D)",
+               "max_abs_err": err, "scale": scale}
+        if dt == bf16:
+            ulps, _ = bf16_ulps(got, want)
+            own, at = bf16_ulps(got, want, floor=False)
+            row.update(max_ulps=ulps, tol_ulps=TOL_ATTN_BF16_ULPS, max_ulps_unfloored=own,
+                       want_at_max_unfloored=at,
+                       ok=ulps <= TOL_ATTN_BF16_ULPS and bool(torch.isfinite(got).all()))
+        else:
+            row.update(tol=TOL_ATTN_F32, ok=err <= TOL_ATTN_F32 * scale
+                       and bool(torch.isfinite(got).all()))
+        checks.append(row)
+        if case.startswith("lm_"):
+            attn_inputs[case] = (qa, ka, va, kw, err)
+        del got, want
     emit({"phase": "kernel_checks", "checks": checks})
     failed = [c for c in checks if not c["ok"]]
     if failed:
@@ -650,10 +1019,11 @@ def main() -> None:
          "flops": 2 * kk_ * m_ * n + kk_ * (2 * m_ ** 3 / 3 + 2 * m_ * m_),
          "shape": f"h_rows ({kk_}, {m_}, {n}), y ({n}, 1) f32"},
     ]
-    by_path = {"binary": launches, "multiclass": launches_mc, "rsa": launches_rsa}
+    by_path = {"binary": launches, "multiclass": launches_mc, "rsa": launches_rsa,
+               "lm_serve": launches_serve, "lm_probe": launches_probe}
 
     def timing(r):
-        b_ms, b_by = bound(r["bytes"], r["flops"], torch.float32)
+        b_ms, b_by = bound(r["bytes"], r["flops"], r.get("dtype", torch.float32))
         k_ms = cuda_ms(r["kernel"])
         return {"ms": k_ms, "kernel_ms": k_ms, "plain_ms": cuda_ms(r["plain"]),
                 "bound_ms": b_ms, "bound_by": b_by, "library_ms": cuda_ms(r["library"]),
@@ -683,6 +1053,57 @@ def main() -> None:
         "launches": launches_rsa["pairdist"],
         "launches_by_path": {k: v["pairdist"] for k, v in by_path.items()},
         "tol": TOL[f32], **shapes[0], "shapes": shapes})
+    # flash_attention: gemma2-2b's global layer at 8,192 tokens (the row),
+    # its local layer and the probe's shape; SDPA as the library yardstick,
+    # timed with K/V expanded to Hq heads beforehand, the boolean
+    # causal+window mask (is_causal for a global layer) and NO softcap
+    # (SDPA has none)
+    def sdpa_call(qa, ka, va, kw):
+        group = qa.shape[1] // ka.shape[1]
+        ke, ve = (t.repeat_interleave(group, dim=1) for t in (ka, va))
+        s_ = qa.shape[2]
+        if kw["window"] is None:
+            return lambda: F.scaled_dot_product_attention(qa, ke, ve, is_causal=True,
+                                                          scale=kw["scale"])
+        idx = torch.arange(s_, device=dev)
+        diff = idx[:, None] - idx[None, :]
+        mask = (diff >= 0) & (diff < kw["window"])
+        return lambda: F.scaled_dot_product_attention(qa, ke, ve, attn_mask=mask,
+                                                      scale=kw["scale"])
+
+    attn_shapes = []
+    for case in ("lm_serve global", "lm_serve local", "lm_serve prefill", "lm_probe"):
+        qa, ka, va, kw, err = attn_inputs[case]
+        b_, hq, s_, d_ = qa.shape
+        pairs = attention_pairs(s_, kw["window"])
+        attn_shapes.append({**timing({
+            "kernel": lambda qa=qa, ka=ka, va=va, kw=kw: flash_attention(qa, ka, va, **kw),
+            "plain": lambda qa=qa, ka=ka, va=va, kw=kw: attention_ref(qa, ka, va, **kw),
+            "library": sdpa_call(qa, ka, va, kw),
+            "bytes": 2 * (2 * b_ * hq * s_ * d_ + 2 * b_ * ka.shape[1] * s_ * d_),
+            "flops": 4 * d_ * pairs * b_ * hq, "dtype": torch.bfloat16,
+            "shape": f"{case}: q ({b_}, {hq}, {s_}, {d_}), k/v ({b_}, {ka.shape[1]}, {s_}, "
+                     f"{d_}) bf16 views of (B, S, H, D), window {kw['window']}, "
+                     f"softcap {kw['softcap']}"}),
+            "max_abs_err": err, "pairs": pairs,
+            "tiles_visited": attention_tiles(s_, kw["window"]) * b_ * hq,
+            "library_note": "SDPA without the softcap"})
+    # the skips at work: the same 8,192-token inputs with every tile visited
+    qa, ka, va, kw, _ = attn_inputs["lm_serve global"]
+    full_ms = cuda_ms(lambda: flash_attention(qa, ka, va, scale=kw["scale"], causal=False,
+                                              softcap=kw["softcap"]))
+    skips = {"non_causal_ms": full_ms,
+             "non_causal_tiles": attention_tiles(LM_LONG, None, causal=False) * 8,
+             "global_ms": attn_shapes[0]["ms"], "global_tiles": attn_shapes[0]["tiles_visited"],
+             "local_ms": attn_shapes[1]["ms"], "local_tiles": attn_shapes[1]["tiles_visited"]}
+    kernels.append({
+        "name": "flash_attention", "route": "cuda",
+        "source": "src/repro_torch/csrc/flash_attention.cu",
+        "replaces": "src/repro/kernels/flash_attention/flash_attention.py:90",
+        "launches": launches_serve["flash_attention"],
+        "launches_by_path": {k: v["flash_attention"] for k, v in by_path.items()},
+        "tol_ulps": TOL_ATTN_BF16_ULPS, **attn_shapes[0], "shapes": attn_shapes,
+        "skips": skips})
     emit({"kernels": kernels, "card": smi})
 
     print(f"nvidia-smi: {smi}", flush=True)

@@ -33,13 +33,14 @@ PACKAGE = Path(__file__).resolve().parent.parent
 CSRC = PACKAGE / "csrc"
 BUILD_ROOT = PACKAGE / "_build"
 
-KERNELS = ("gram", "hat_apply", "foldsolve", "fold_eval", "pairdist")
+KERNELS = ("gram", "hat_apply", "foldsolve", "fold_eval", "pairdist", "flash_attention")
 
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
+_F = ctypes.c_float
 
 #: C signature of every entry point, by kernel: pointers and the stream
 #: (last) are ``c_void_p`` so ctypes never truncates them to 32 bits.
@@ -56,6 +57,9 @@ ARGTYPES = {
                   for t in ("f32", "f64")},
     # (u, ws, d, c, p, splits, stream)
     "pairdist": {f"pairdist_{t}": (_P, _P, _P, _I, _I, _I, _P) for t in ("f32", "f64", "bf16")},
+    # (q, k, v, o, b, hq, hkv, s, d, 12 strides, scale, softcap, causal, window, stream)
+    "flash_attention": {f"flash_attention_{t}": (_P,) * 4 + (_I,) * 17 + (_F, _F, _I, _I, _P)
+                        for t in ("f32", "bf16")},
 }
 
 #: Kernel launches per kernel since the last :func:`reset_launches`.

@@ -1,0 +1,59 @@
+"""CUDA launch of the flash_attention kernel (``csrc/flash_attention.cu``).
+
+The Hopper counterpart of ``flash_attention_pallas``: causal / windowed /
+soft-capped GQA self-attention with an online softmax, f32 math, f32 or
+bf16 in and out. q, k and v are read through their strides (the feature
+dimension must be contiguous), so a transposed view of the projections'
+(B, S, H, D) layout goes in without a copy; the output is allocated with
+q's strides.
+"""
+
+from __future__ import annotations
+
+from typing import Optional
+
+import torch
+
+from repro_torch.kernels import _build
+
+SYMBOLS = {torch.float32: "flash_attention_f32", torch.bfloat16: "flash_attention_bf16"}
+#: Head dimensions the kernel is instantiated for.
+HEAD_DIMS = (64, 128, 256)
+#: Query rows per block and keys per tile (kFlashBQ, kFlashBK in the source).
+TILE = 64
+_INT_MAX = 2**31 - 1
+
+
+def key_tile_range(q0: int, s: int, window: Optional[int], causal: bool) -> tuple:
+    """The first and last key tile (inclusive) the kernel visits for the
+    query tile starting at ``q0``: from max(0, q0 − W + 1) to the causal
+    frontier. Mirrors the loop bounds in ``csrc/flash_attention.cu``."""
+    hi = (min(q0 + TILE, s) - 1 if causal else s - 1) // TILE
+    lo = 0 if window is None else max(0, q0 - window + 1) // TILE
+    return lo, hi
+
+
+def flash_attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *, scale: float,
+                         causal: bool, window: Optional[int],
+                         softcap: Optional[float]) -> torch.Tensor:
+    """Attention through the CUDA kernel; checked shapes, one launch."""
+    for name, t in (("q", q), ("k", k), ("v", v)):
+        if t.device.type != "cuda" or t.device != q.device:
+            raise ValueError(f"flash_attention: kernel route needs CUDA tensors on one device, "
+                             f"got {name} on {t.device}")
+        if t.stride(-1) != 1:
+            raise ValueError(f"flash_attention: {name}'s feature dimension must be contiguous")
+        if max(t.stride()[:3]) > _INT_MAX:
+            raise ValueError(f"flash_attention: {name}'s strides exceed 32 bits")
+    b, hq, s, d = q.shape
+    if d not in HEAD_DIMS:
+        raise ValueError(f"flash_attention: the kernel takes head_dim in {HEAD_DIMS}, got {d}")
+    if b * hq > 65535:
+        raise ValueError(f"flash_attention: B·Hq = {b * hq} exceeds the grid's 65,535")
+    out = torch.empty_like(q)                  # q's strides (a dense layout)
+    strides = [st for t in (q, k, v, out) for st in t.stride()[:3]]
+    _build.launch("flash_attention", SYMBOLS[q.dtype], q.device, q, k, v, out,
+                  b, hq, k.shape[1], s, d, *strides, float(scale),
+                  0.0 if softcap is None else float(softcap), int(causal),
+                  0 if window is None else int(window))
+    return out

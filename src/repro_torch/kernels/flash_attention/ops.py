@@ -1,0 +1,46 @@
+"""Public wrapper for the flash_attention kernel: checks and dispatch.
+
+A CPU tensor takes the plain version (``ref.py``); a CUDA tensor launches
+the kernel (``flash_attention.py``) or raises. Unlike the TPU wrapper it
+pads nothing: ragged S is masked inside the kernel. The inputs are not
+made contiguous either: the kernel reads them through their strides.
+"""
+
+from __future__ import annotations
+
+from typing import Optional
+
+import torch
+
+from repro_torch.kernels.flash_attention.flash_attention import SYMBOLS, flash_attention_cuda
+from repro_torch.kernels.flash_attention.ref import attention_ref
+
+__all__ = ["flash_attention"]
+
+
+def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *, scale: float,
+                    causal: bool = True, window: Optional[int] = None,
+                    softcap: Optional[float] = None) -> torch.Tensor:
+    """Self-attention (S_q == S_kv). q: (B, Hq, S, D); k, v: (B, Hkv, S, D)
+    with Hq % Hkv == 0; query head h reads KV head h // (Hq / Hkv).
+
+    float32 and bfloat16 only (math in float32, output in the input type);
+    any other dtype raises ``TypeError``.
+    """
+    if q.ndim != 4 or k.shape != v.shape or k.ndim != 4:
+        raise ValueError(f"flash_attention: need 4-D q and equal 4-D k, v; got "
+                         f"{tuple(q.shape)}, {tuple(k.shape)}, {tuple(v.shape)}")
+    b, hq, s, d = q.shape
+    if k.shape[0] != b or k.shape[2] != s or k.shape[3] != d or hq % k.shape[1]:
+        raise ValueError(f"flash_attention: k/v shape {tuple(k.shape)} does not fit q "
+                         f"{tuple(q.shape)} (self-attention with Hq % Hkv == 0)")
+    if not (q.dtype == k.dtype == v.dtype) or q.dtype not in SYMBOLS:
+        raise TypeError(f"flash_attention: unsupported dtypes {q.dtype}/{k.dtype}/{v.dtype} "
+                        "(float32 or bfloat16, all alike)")
+    if window is not None and window < 1:
+        raise ValueError(f"flash_attention: window must be ≥ 1, got {window}")
+    if q.device.type == "cpu":
+        return attention_ref(q, k, v, scale=scale, causal=causal, window=window,
+                             softcap=softcap)
+    return flash_attention_cuda(q, k, v, scale=scale, causal=causal, window=window,
+                                softcap=softcap)

@@ -39,6 +39,16 @@ def test_port_never_imports_jax_or_the_reference(path):
             assert root not in ("jax", "jaxlib", "repro"), f"{path}: imports {name}"
 
 
+def test_the_import_check_covers_every_subpackage():
+    """The check above reaches the LLM substrate's configs, models and
+    launchers as well as the analysis packages and the kernels."""
+    subpackages = {p.relative_to(PORT).parts[0] for p in _port_files() if p.is_relative_to(PORT)}
+    assert {"configs", "models", "launch", "core", "rsa", "data", "kernels"} <= subpackages
+    names = {p.relative_to(PORT).as_posix() for p in _port_files() if p.is_relative_to(PORT)}
+    assert {"launch/serve.py", "launch/probe.py", "models/convert.py",
+            "kernels/flash_attention/ops.py", "configs/gemma2_2b.py"} <= names
+
+
 def test_importing_the_whole_port_loads_no_jax():
     code = (
         "import sys, pkgutil, importlib, repro_torch\n"
@@ -74,6 +84,8 @@ def test_argtypes_table_matches_the_c_entry_points():
         for ctype, param in zip(argtypes, params):
             if "*" in param:
                 assert ctype is ctypes.c_void_p, (symbol, param)
+            elif param == "float":
+                assert ctype is ctypes.c_float, (symbol, param)
             else:
                 assert param == "int" and ctype is ctypes.c_int, (symbol, param)
         assert params[-1] == "void*"        # the stream comes last

@@ -6,11 +6,16 @@ On a machine with one: ``PYTHONPATH=src python -m pytest -q -m cuda
 with nvcc; ``--noconftest`` skips the root conftest, which configures jax).
 """
 
+import dataclasses
+
 import pytest
 import torch
 
+from repro_torch.configs.base import get_config
 from repro_torch.core import fastcv, folds, multiclass
 from repro_torch.kernels import _build
+from repro_torch.kernels.flash_attention.ops import flash_attention
+from repro_torch.kernels.flash_attention.ref import attention_ref
 from repro_torch.kernels.fold_eval.ops import fold_eval
 from repro_torch.kernels.fold_eval.ref import fold_eval_ref
 from repro_torch.kernels.foldsolve.ops import fold_jitter, foldsolve
@@ -21,6 +26,8 @@ from repro_torch.kernels.hat_apply.ops import hat_errors
 from repro_torch.kernels.hat_apply.ref import hat_apply_ref
 from repro_torch.kernels.pairdist.ops import pairwise_sq_dists
 from repro_torch.kernels.pairdist.ref import pairwise_sq_dists_ref
+from repro_torch.models import model as M
+from repro_torch.models import transformer as T
 from repro_torch.rsa import rdm
 
 pytestmark = pytest.mark.cuda
@@ -172,3 +179,93 @@ def test_rdm_binary_on_the_card_equals_the_cpu(gen):
     gpu = rdm.rdm_binary(x, y, f_gpu, 6, 50.0, adjust_bias=False)
     assert _build.LAUNCHES["fold_eval"] > before
     _close(gpu.cpu(), rdm.rdm_binary(x.cpu(), y.cpu(), f_cpu, 6, 50.0, adjust_bias=False), 1e-9)
+
+
+# ----------------------------------------------------- flash attention ----
+# f32: ≤ 2e-5 of max |out| (the same f32 softmax, summed in another order);
+# bf16 I/O: within 2 bf16 ulps of each element (both round an f32 result
+# once; a ~1e-7 difference before rounding can move it by one ulp), the ulp
+# taken at no less than 2^-8 of max |out|: smaller outputs come from
+# cancellation, where that f32 difference is several of their own ulps.
+
+def _bf16_ulps(got, want):
+    got, want = got.double(), want.double()
+    mag = want.abs().clamp(min=float(want.abs().max()) / 256)
+    return float(((got - want).abs() / torch.exp2(torch.floor(torch.log2(mag)) - 7)).max())
+
+
+def _attn_close(got, want):
+    assert got.shape == want.shape and got.dtype == want.dtype
+    if got.dtype == torch.bfloat16:
+        assert _bf16_ulps(got, want) <= 2.0
+    else:
+        _close(got, want, 2e-5)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("d", [64, 128, 256])
+@pytest.mark.parametrize("s,window,softcap", [(200, None, None), (1000, 64, 50.0),
+                                              (130, 7, None), (64, None, 20.0)])
+def test_flash_attention_kernel(gen, dtype, d, s, window, softcap):
+    q = torch.randn(2, 8, s, d, generator=gen, device="cuda").to(dtype)
+    k, v = (torch.randn(2, 4, s, d, generator=gen, device="cuda").to(dtype) for _ in range(2))
+    kw = dict(scale=d ** -0.5, window=window, softcap=softcap)
+    got = _launched("flash_attention", lambda: flash_attention(q, k, v, **kw))
+    _attn_close(got, attention_ref(q, k, v, **kw))
+
+
+@pytest.mark.parametrize("hq,hkv", [(4, 4), (8, 2), (6, 1)])
+def test_flash_attention_kernel_gqa_and_non_causal(gen, hq, hkv):
+    q = torch.randn(1, hq, 300, 128, generator=gen, device="cuda")
+    k, v = (torch.randn(1, hkv, 300, 128, generator=gen, device="cuda") for _ in range(2))
+    for causal in (True, False):
+        got = _launched("flash_attention",
+                        lambda: flash_attention(q, k, v, scale=0.1, causal=causal))
+        _attn_close(got, attention_ref(q, k, v, scale=0.1, causal=causal))
+
+
+def test_flash_attention_kernel_reads_strided_views(gen):
+    """(B, S, H, D) memory seen as (B, H, S, D): the same bits as contiguous
+    inputs, and the output keeps q's layout."""
+    q = torch.randn(2, 77, 8, 64, generator=gen, device="cuda")
+    k, v = (torch.randn(2, 77, 4, 64, generator=gen, device="cuda") for _ in range(2))
+    qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
+    got = flash_attention(qt, kt, vt, scale=0.125, window=20, softcap=30.0)
+    assert got.stride() == qt.stride()
+    want = flash_attention(qt.contiguous(), kt.contiguous(), vt.contiguous(), scale=0.125,
+                           window=20, softcap=30.0)
+    assert torch.equal(got, want)
+
+
+def test_flash_attention_kernel_refuses_what_it_does_not_take(gen):
+    z = lambda h, d=64, dtype=torch.float32: torch.zeros(1, h, 8, d, device="cuda", dtype=dtype)
+    with pytest.raises(ValueError, match="head_dim"):
+        flash_attention(z(2, 16), z(2, 16), z(2, 16), scale=1.0)
+    with pytest.raises(TypeError, match="unsupported dtypes"):
+        flash_attention(z(2, dtype=torch.float16), z(2, dtype=torch.float16),
+                        z(2, dtype=torch.float16), scale=1.0)
+    x = torch.zeros(1, 2, 8, 128, device="cuda")[..., ::2]
+    with pytest.raises(ValueError, match="contiguous"):
+        flash_attention(x, x, x, scale=1.0)
+
+
+def test_smoke_model_on_the_card_equals_the_cpu(gen):
+    """A gemma2-shaped smoke model at head_dim 64 (the kernel's smallest):
+    the forward on the card goes through the kernel once per layer, decode
+    through none, and both equal the CPU's plain route."""
+    cfg = dataclasses.replace(get_config("gemma2-2b", smoke=True), head_dim=64,
+                              query_scale=64 ** -0.5)
+    model = M.init_params(cfg, device="cpu")
+    model_gpu = M.init_params(cfg, device="cpu").to("cuda")
+    toks = torch.randint(0, cfg.vocab_size, (2, 40), generator=torch.Generator().manual_seed(0))
+    before = _build.LAUNCHES["flash_attention"]
+    got, _, _ = M.forward(model_gpu, toks.cuda(), cfg)
+    torch.cuda.synchronize()
+    assert _build.LAUNCHES["flash_attention"] - before == cfg.num_layers
+    want, _, _ = M.forward(model, toks, cfg)
+    _close(got.cpu(), want, 1e-4)
+    caches = T.init_trunk_cache(cfg, 2, 4, "cuda")
+    before = _build.LAUNCHES["flash_attention"]
+    for t in range(4):
+        M.decode_step(model_gpu, toks[:, t:t + 1].cuda(), t, caches, cfg)
+    assert _build.LAUNCHES["flash_attention"] == before

@@ -10,6 +10,8 @@ import numpy as np
 import pytest
 import torch
 
+from repro.kernels.flash_attention.ops import flash_attention as ref_flash_attention
+from repro.kernels.flash_attention.ref import attention_ref as ref_attention_ref
 from repro.kernels.fold_eval.ops import fold_eval as ref_fold_eval
 from repro.kernels.foldsolve.ops import fold_jitter as ref_fold_jitter
 from repro.kernels.foldsolve.ops import fold_residual_bad as ref_residual_bad
@@ -21,6 +23,9 @@ from repro.kernels.pairdist.ops import pairwise_sq_dists as ref_pairwise_sq_dist
 from repro.kernels.pairdist.ref import pairwise_sq_dists_ref as ref_pairwise_sq_dists_ref
 from repro_torch.kernels import _build
 from repro_torch.kernels.common import cdiv, default_fused
+from repro_torch.kernels.flash_attention import flash_attention as flash_launch
+from repro_torch.kernels.flash_attention.ops import flash_attention
+from repro_torch.kernels.flash_attention.ref import attention_ref
 from repro_torch.kernels.fold_eval.ops import fold_eval
 from repro_torch.kernels.foldsolve.foldsolve import SMEM_BYTES, aug_in_shared, block_cols
 from repro_torch.kernels.foldsolve.ops import fold_jitter, fold_residual_bad, foldsolve
@@ -298,6 +303,163 @@ def test_pairdist_cpu_and_meta_never_reach_the_build(monkeypatch):
         pairdist_launch.pairdist_cuda(torch.zeros(6, 40, device="meta"))
 
 
+# ----------------------------------------------------- flash attention ----
+# Tolerances: f32 ≤ 2e-5 of max |out| (the same f32 softmax, summed in
+# another order); bf16 I/O within 2 bf16 ulps of each element (both sides
+# compute in f32 and round once, so a ~1e-7 difference can move the
+# rounding by one ulp; the second is headroom), the ulp taken at no less
+# than 2^-8 of max |out| (smaller outputs come from cancellation, where
+# that f32 difference is several of their own ulps).
+TOL_ATTN_F32 = 2e-5
+
+
+def _qkv(seed, b, hq, hkv, s, d, amp=1.0):
+    rng = _rng(seed)
+    return tuple((amp * rng.normal(size=(b, h, s, d))).astype(np.float32)
+                 for h in (hq, hkv, hkv))
+
+
+def _bf16_ulps(got, want):
+    """max |got − want| in units of the bf16 ulp at |want|, floored at
+    2^-8 of max |want|."""
+    got, want = (np.asarray(a, np.float64) for a in (got, want))
+    mag = np.maximum(np.abs(want), np.max(np.abs(want)) / 256)
+    ulp = np.exp2(np.floor(np.log2(mag)) - 7)
+    return float(np.max(np.abs(got - want) / ulp))
+
+
+def _both_refs(q, k, v, **kw):
+    jq, jk, jv = (jnp.asarray(a) for a in (q, k, v))
+    return (ref_flash_attention(jq, jk, jv, block_q=64, block_k=64, interpret=True, **kw),
+            ref_attention_ref(jq, jk, jv, **kw))
+
+
+def _flash_close(got, wants):
+    for want in wants:
+        scale = float(np.max(np.abs(np.asarray(want))))
+        assert float(np.max(np.abs(got.numpy() - np.asarray(want)))) <= TOL_ATTN_F32 * scale
+
+
+@pytest.mark.parametrize("hq,hkv", [(4, 4), (8, 2), (6, 1)])
+@pytest.mark.parametrize("s", [32, 128, 200])
+def test_flash_causal_gqa_matches_reference(hq, hkv, s):
+    q, k, v = _qkv(s + hq, 2, hq, hkv, s, 16)
+    got = flash_attention(_t(q), _t(k), _t(v), scale=0.25)
+    assert got.dtype == torch.float32 and got.shape == (2, hq, s, 16)
+    _flash_close(got, _both_refs(q, k, v, scale=0.25))
+
+
+@pytest.mark.parametrize("window", [16, 64])
+def test_flash_local_window_matches_reference(window):
+    q, k, v = _qkv(window, 1, 2, 2, 128, 8)
+    got = flash_attention(_t(q), _t(k), _t(v), scale=0.3, window=window)
+    _flash_close(got, _both_refs(q, k, v, scale=0.3, window=window))
+
+
+def test_flash_softcap_matches_reference():
+    q, k, v = _qkv(7, 1, 2, 2, 64, 8, amp=3.0)
+    got = flash_attention(_t(q), _t(k), _t(v), scale=0.5, softcap=20.0)
+    _flash_close(got, _both_refs(q, k, v, scale=0.5, softcap=20.0))
+
+
+def test_flash_window_softcap_gqa_matches_reference():
+    """gemma2's local layers: window and softcap together, Hq = 2·Hkv."""
+    q, k, v = _qkv(8, 2, 4, 2, 96, 16, amp=2.0)
+    got = flash_attention(_t(q), _t(k), _t(v), scale=0.25, window=24, softcap=50.0)
+    _flash_close(got, _both_refs(q, k, v, scale=0.25, window=24, softcap=50.0))
+
+
+def test_flash_bf16_io_matches_reference():
+    q, k, v = _qkv(10, 1, 2, 2, 64, 16)
+    qb, kb, vb = (jnp.asarray(a).astype(jnp.bfloat16) for a in (q, k, v))
+    tq, tk, tv = (torch.from_numpy(np.array(a.astype(jnp.float32))).to(torch.bfloat16)
+                  for a in (qb, kb, vb))
+    got = flash_attention(tq, tk, tv, scale=0.25)
+    assert got.dtype == torch.bfloat16
+    for want in (ref_flash_attention(qb, kb, vb, scale=0.25, block_q=32, block_k=32,
+                                     interpret=True),
+                 ref_attention_ref(qb, kb, vb, scale=0.25)):
+        assert want.dtype == jnp.bfloat16
+        assert _bf16_ulps(got.float().numpy(), np.asarray(want.astype(jnp.float32))) <= 2.0
+
+
+def test_flash_strided_views_and_non_causal():
+    """The wrapper takes transposed views as they are (the model's layout),
+    and causal=False attends to every key."""
+    q, k, v = _qkv(11, 1, 4, 2, 40, 8)
+    as_bshd = lambda a: _t(a.transpose(0, 2, 1, 3)).transpose(1, 2)   # (B, H, S, D) view
+    got = flash_attention(as_bshd(q), as_bshd(k), as_bshd(v), scale=0.3, window=9)
+    assert torch.equal(got, attention_ref(_t(q), _t(k), _t(v), scale=0.3, window=9))
+    got = flash_attention(_t(q), _t(k), _t(v), scale=0.3, causal=False)
+    want = ref_attention_ref(*(jnp.asarray(a) for a in (q, k, v)), scale=0.3, causal=False)
+    scale = float(np.max(np.abs(np.asarray(want))))
+    assert float(np.max(np.abs(got.numpy() - np.asarray(want)))) <= TOL_ATTN_F32 * scale
+
+
+def test_flash_decode_offset_matches_reference():
+    """The plain version aligns the ends when S_q < S_kv (the decode offset)."""
+    rng = _rng(12)
+    q = rng.normal(size=(1, 4, 5, 8)).astype(np.float32)
+    k, v = (rng.normal(size=(1, 2, 30, 8)).astype(np.float32) for _ in range(2))
+    got = attention_ref(_t(q), _t(k), _t(v), scale=0.3, window=12, softcap=5.0)
+    want = ref_attention_ref(*(jnp.asarray(a) for a in (q, k, v)), scale=0.3, window=12,
+                             softcap=5.0)
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=0, atol=2e-6)
+
+
+@pytest.mark.parametrize("s,window,causal", [(200, None, True), (200, 16, True), (1000, 100, True),
+                                             (130, 64, True), (8192, 4096, True),
+                                             (200, None, False), (150, 40, False)])
+def test_flash_key_tiles_are_exactly_the_reachable_ones(s, window, causal):
+    """The kernel's key-tile range per query tile covers every (q, k) pair
+    the mask keeps and no tile without one (the Pallas kernel's skip)."""
+    t = flash_launch.TILE
+    q = np.arange(s)[:, None]
+    k = np.arange(s)[None, :]
+    keep = np.ones((s, s), bool)
+    if causal:
+        keep &= q >= k
+    if window is not None:
+        keep &= q - k < window
+    n_t = cdiv(s, t)
+    keep = np.pad(keep, ((0, n_t * t - s), (0, 0)))            # rows past S keep nothing
+    tiles = keep.reshape(n_t, t, s).any(axis=1)                # (query tile, key)
+    for qt in range(n_t):
+        lo, hi = flash_launch.key_tile_range(qt * t, s, window, causal)
+        reach = [kt for kt in range(n_t) if tiles[qt, kt * t:(kt + 1) * t].any()]
+        assert reach == list(range(lo, hi + 1)), (qt, lo, hi)
+
+
+def test_flash_rejects_what_the_kernel_does_not_take():
+    z = lambda *shape, dtype=torch.float32: torch.zeros(shape, dtype=dtype)
+    with pytest.raises(TypeError, match="unsupported dtypes"):
+        flash_attention(z(1, 2, 8, 16, dtype=torch.float16), z(1, 2, 8, 16, dtype=torch.float16),
+                        z(1, 2, 8, 16, dtype=torch.float16), scale=1.0)
+    with pytest.raises(TypeError, match="unsupported dtypes"):
+        flash_attention(z(1, 2, 8, 16), z(1, 2, 8, 16, dtype=torch.float64), z(1, 2, 8, 16),
+                        scale=1.0)
+    with pytest.raises(ValueError, match="Hq % Hkv"):
+        flash_attention(z(1, 3, 8, 16), z(1, 2, 8, 16), z(1, 2, 8, 16), scale=1.0)
+    with pytest.raises(ValueError, match="window"):
+        flash_attention(z(1, 2, 8, 16), z(1, 2, 8, 16), z(1, 2, 8, 16), scale=1.0, window=0)
+    with pytest.raises(ValueError, match="4-D"):
+        flash_attention(z(2, 8, 16), z(2, 8, 16), z(2, 8, 16), scale=1.0)
+
+
+def test_flash_cpu_never_reaches_the_build_and_meta_is_refused(monkeypatch):
+    def refuse(*a, **k):
+        raise AssertionError("_build reached")
+    monkeypatch.setattr(_build, "build", refuse)
+    monkeypatch.setattr(_build, "load", refuse)
+    monkeypatch.setattr(_build, "launch", refuse)
+    q, k, v = (_t(a) for a in _qkv(13, 1, 2, 1, 16, 64))
+    assert torch.equal(flash_attention(q, k, v, scale=0.1), attention_ref(q, k, v, scale=0.1))
+    meta = lambda h, d=64: torch.zeros((1, h, 16, d), device="meta")
+    with pytest.raises(ValueError, match="CUDA"):
+        flash_launch.flash_attention_cuda(meta(2), meta(1), meta(1), scale=0.1, causal=True,
+                                          window=None, softcap=None)
+
+
 # ------------------------------------------------------------ dispatch ----
 
 def test_common_helpers():
@@ -312,7 +474,8 @@ def test_common_helpers():
     lambda t: foldsolve(t((2, 3, 3)), t((2, 3, 1)), jitter=None),
     lambda t: fold_eval(t((2, 3, 6)), t((2, 3, 3)), t((6, 1)), t((2, 3, 1)), jitter=None),
     lambda t: pairwise_sq_dists(t((5, 30))),
-], ids=["gram", "hat_apply", "foldsolve", "fold_eval", "pairdist"])
+    lambda t: flash_attention(t((1, 2, 8, 64)), t((1, 1, 8, 64)), t((1, 1, 8, 64)), scale=0.1),
+], ids=["gram", "hat_apply", "foldsolve", "fold_eval", "pairdist", "flash_attention"])
 def test_non_cpu_tensor_never_takes_the_plain_version(call):
     """Only a CPU tensor reaches the plain version: any other device goes to
     the kernel route, which refuses what is not a CUDA tensor."""
