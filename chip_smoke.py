@@ -50,6 +50,13 @@ contrast and confusion RDMs, a probe point's decision values), against
 retraining per fold (binary at P = 3,800, multi-class at P = 1,900), and
 the LM's logits against the plain-attention model and its own forward.
 
+flash_attention's bf16 route must run on the tensor cores: the build phase
+counts the HGMMA instructions in the built library's SASS (cuobjdump) and
+reads ptxas's report of its bf16 instantiations (D = 64, 128, 256), and the
+run fails on no HGMMA or any spill. The `kernels` line times flash at the LM
+paths' shapes (tensor-core route) and at an f32 I/O shape (SIMT route), with
+TFLOP/s on the counted and on the issued operations.
+
 Each phase prints one JSON line. The line before the last is the card's
 name and power limit from nvidia-smi; the last line is
 ``{"ok": true, "device": {...}}``. Any failure exits non-zero before that
@@ -60,6 +67,7 @@ from __future__ import annotations
 
 import dataclasses
 import json
+import re
 import statistics
 import subprocess
 import sys
@@ -268,12 +276,42 @@ def attention_pairs(s: int, window, causal: bool = True) -> int:
     return sum(min(q + 1, window) for q in range(s))
 
 
-def attention_tiles(s: int, window, causal: bool = True) -> int:
-    """Key tiles the flash kernel visits per (b·Hq), over its 64-row query
-    tiles (the kernel's loop bounds, ``key_tile_range``)."""
-    from repro_torch.kernels.flash_attention.flash_attention import TILE, key_tile_range
-    return sum(hi - lo + 1 for lo, hi in (key_tile_range(q0, s, window, causal)
-                                          for q0 in range(0, s, TILE)))
+def attention_tiles(s: int, window, causal: bool, route: str) -> int:
+    """Key tiles the flash kernel's ``route`` visits per (b·Hq), over its
+    query blocks (the kernel's loop bounds, ``key_tile_range``)."""
+    from repro_torch.kernels.flash_attention.flash_attention import TILES, key_tile_range
+    tile = TILES[route]
+    return sum(hi - lo + 1 for lo, hi in (key_tile_range(q0, s, window, causal, tile)
+                                          for q0 in range(0, s, tile[0])))
+
+
+def ptxas_report(log: str) -> dict:
+    """{kernel symbol: {"registers": n, "spill_bytes": stores + loads}} from
+    ``nvcc -Xptxas -v`` output."""
+    out, name = {}, None
+    for ln in log.splitlines():
+        m = re.search(r"Compiling entry function '(\S+)'", ln)
+        if m:
+            name = m.group(1)
+            out[name] = {}
+            continue
+        m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", ln)
+        if m and name:
+            out[name]["spill_bytes"] = int(m.group(1)) + int(m.group(2))
+        m = re.search(r"Used (\d+) registers", ln)
+        if m and name:
+            out[name]["registers"] = int(m.group(1))
+    return out
+
+
+def sass_count(lib: Path, opcode: str) -> int:
+    """Instructions named ``opcode`` in a built library's SASS (cuobjdump of
+    the CUDA toolkit that built it)."""
+    from repro_torch.kernels import _build
+    cuobjdump = Path(_build.find_nvcc()).parent / "cuobjdump"
+    sass = subprocess.run([str(cuobjdump), "-sass", str(lib)], capture_output=True, text=True,
+                          check=True).stdout
+    return len(re.findall(rf"\b{opcode}\b", sass))
 
 
 def lm_serve_phase(dev):
@@ -467,6 +505,7 @@ def main() -> None:
     from repro_torch.kernels.gram.ref import gram_ref
     from repro_torch.kernels.hat_apply.ops import hat_errors
     from repro_torch.kernels.hat_apply.ref import hat_apply_ref
+    from repro_torch.kernels.flash_attention.flash_attention import ROUTES
     from repro_torch.kernels.flash_attention.ops import flash_attention
     from repro_torch.kernels.flash_attention.ref import attention_ref
     from repro_torch.kernels.pairdist.ops import pairwise_sq_dists
@@ -493,8 +532,22 @@ def main() -> None:
         log = path.with_suffix(".log")
         ptxas[name] = [ln.strip() for ln in log.read_text().splitlines()
                        if "registers" in ln] if log.is_file() else []
+    # flash_attention's bf16 route must run on the tensor cores (HGMMA in its
+    # SASS) with no register spills at any head width
+    flash_lib = paths["flash_attention"]
+    hgmma = sass_count(flash_lib, "HGMMA")
+    flash_tc = {int(re.search(r"ILi(\d+)E", k).group(1)): v for k, v in
+                ptxas_report(flash_lib.with_suffix(".log").read_text()).items()
+                if "flash_tc_kernel" in k}
     emit({"phase": "build", "seconds": build_s, "hash": _build.source_hash(),
-          "ptxas": ptxas})
+          "ptxas": ptxas, "flash_hgmma": hgmma, "flash_tensor_core_ptxas": flash_tc})
+    if hgmma == 0:
+        fail("libflash_attention.so holds no HGMMA instruction: the bf16 route is not on the "
+             "tensor cores")
+    if sorted(flash_tc) != [64, 128, 256] or any(v.get("spill_bytes", 1) for v in
+                                                  flash_tc.values()):
+        fail(f"flash_attention's bf16 instantiations: want D = 64, 128, 256 with 0 spill "
+             f"bytes, ptxas says {flash_tc}")
 
     # -- 4. the main path at the paper's MEG/EEG size --------------------------
     ds, t_sim = timed(lambda: eeg.simulate_subject(SEED, n_trials=N_TRIALS, device=dev))
@@ -975,7 +1028,7 @@ def main() -> None:
             row.update(tol=TOL_ATTN_F32, ok=err <= TOL_ATTN_F32 * scale
                        and bool(torch.isfinite(got).all()))
         checks.append(row)
-        if case.startswith("lm_"):
+        if case.startswith("lm_") or case == "f32 I/O":
             attn_inputs[case] = (qa, ka, va, kw, err)
         del got, want
     emit({"phase": "kernel_checks", "checks": checks})
@@ -1071,29 +1124,41 @@ def main() -> None:
         return lambda: F.scaled_dot_product_attention(qa, ke, ve, attn_mask=mask,
                                                       scale=kw["scale"])
 
+    # each timed shape with its kernel route: bf16 on the tensor cores, f32 on
+    # the SIMT cores; TFLOP/s on the counted operations (4·D·pairs·B·Hq, the
+    # bound's) and on those the route issues (6·D·pairs·B·Hq with P split in
+    # two on the tensor cores)
     attn_shapes = []
-    for case in ("lm_serve global", "lm_serve local", "lm_serve prefill", "lm_probe"):
+    for case in ("lm_serve global", "lm_serve local", "lm_serve prefill", "lm_probe",
+                 "f32 I/O"):
         qa, ka, va, kw, err = attn_inputs[case]
         b_, hq, s_, d_ = qa.shape
         pairs = attention_pairs(s_, kw["window"])
-        attn_shapes.append({**timing({
+        route = ROUTES[qa.dtype]
+        counted = 4 * d_ * pairs * b_ * hq
+        issued = (6 if route == "tensor_core" else 4) * d_ * pairs * b_ * hq
+        layout = "views of (B, S, H, D)" if case.startswith("lm_") else "contiguous"
+        row = {**timing({
             "kernel": lambda qa=qa, ka=ka, va=va, kw=kw: flash_attention(qa, ka, va, **kw),
             "plain": lambda qa=qa, ka=ka, va=va, kw=kw: attention_ref(qa, ka, va, **kw),
             "library": sdpa_call(qa, ka, va, kw),
-            "bytes": 2 * (2 * b_ * hq * s_ * d_ + 2 * b_ * ka.shape[1] * s_ * d_),
-            "flops": 4 * d_ * pairs * b_ * hq, "dtype": torch.bfloat16,
+            "bytes": qa.element_size() * (2 * b_ * hq * s_ * d_ + 2 * b_ * ka.shape[1] * s_ * d_),
+            "flops": counted, "dtype": qa.dtype,
             "shape": f"{case}: q ({b_}, {hq}, {s_}, {d_}), k/v ({b_}, {ka.shape[1]}, {s_}, "
-                     f"{d_}) bf16 views of (B, S, H, D), window {kw['window']}, "
-                     f"softcap {kw['softcap']}"}),
-            "max_abs_err": err, "pairs": pairs,
-            "tiles_visited": attention_tiles(s_, kw["window"]) * b_ * hq,
-            "library_note": "SDPA without the softcap"})
+                     f"{d_}) {str(qa.dtype).removeprefix('torch.')} {layout}, window "
+                     f"{kw['window']}, softcap {kw['softcap']}"}),
+            "max_abs_err": err, "kernel_route": route, "pairs": pairs,
+            "tiles_visited": attention_tiles(s_, kw["window"], True, route) * b_ * hq,
+            "library_note": "SDPA without the softcap"}
+        row["tflops_counted"] = counted / row["ms"] / 1e9
+        row["tflops_issued"] = issued / row["ms"] / 1e9
+        attn_shapes.append(row)
     # the skips at work: the same 8,192-token inputs with every tile visited
     qa, ka, va, kw, _ = attn_inputs["lm_serve global"]
     full_ms = cuda_ms(lambda: flash_attention(qa, ka, va, scale=kw["scale"], causal=False,
                                               softcap=kw["softcap"]))
     skips = {"non_causal_ms": full_ms,
-             "non_causal_tiles": attention_tiles(LM_LONG, None, causal=False) * 8,
+             "non_causal_tiles": attention_tiles(LM_LONG, None, False, "tensor_core") * 8,
              "global_ms": attn_shapes[0]["ms"], "global_tiles": attn_shapes[0]["tiles_visited"],
              "local_ms": attn_shapes[1]["ms"], "local_tiles": attn_shapes[1]["tiles_visited"]}
     kernels.append({
@@ -1103,7 +1168,7 @@ def main() -> None:
         "launches": launches_serve["flash_attention"],
         "launches_by_path": {k: v["flash_attention"] for k, v in by_path.items()},
         "tol_ulps": TOL_ATTN_BF16_ULPS, **attn_shapes[0], "shapes": attn_shapes,
-        "skips": skips})
+        "skips": skips, "hgmma": hgmma, "tensor_core_ptxas": flash_tc})
     emit({"kernels": kernels, "card": smi})
 
     print(f"nvidia-smi: {smi}", flush=True)

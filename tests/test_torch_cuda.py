@@ -249,6 +249,55 @@ def test_flash_attention_kernel_refuses_what_it_does_not_take(gen):
         flash_attention(x, x, x, scale=1.0)
 
 
+# The bf16 route (tensor cores: wgmma, TMA, P split in two): ragged S (1, S
+# below a key tile, 777), windows of 1, 9 and beyond S, softcap on and off,
+# non-causal, Hq/Hkv of 36/36, 24/2 and 8/4, B·Hq above the card's 132 SMs,
+# each at D = 64, 128 and 256, contiguous and as (B, S, H, D) views: every
+# element within 2 bf16 ulps of attention_ref, one launch each.
+TC_CASES = [
+    # (B, Hq, Hkv, S, window, softcap, causal)
+    (1, 8, 4, 1, None, None, True),
+    (1, 8, 4, 40, None, 50.0, True),
+    (2, 8, 4, 777, 9, 50.0, True),
+    (1, 24, 2, 777, 1, None, True),
+    (1, 36, 36, 300, 1000, 30.0, True),
+    (2, 8, 4, 777, None, None, False),
+    (1, 24, 2, 513, 9, None, False),
+    (20, 8, 4, 200, None, 50.0, True),
+]
+
+
+@pytest.mark.parametrize("strided", [False, True], ids=["bhsd", "bshd_view"])
+@pytest.mark.parametrize("d", [64, 128, 256])
+@pytest.mark.parametrize("case", TC_CASES, ids=lambda c: "B{}-Hq{}-Hkv{}-S{}-W{}-cap{}-{}".format(
+    *c[:6], "causal" if c[6] else "full"))
+def test_flash_attention_tensor_core_route(gen, case, d, strided):
+    b, hq, hkv, s, window, softcap, causal = case
+    if strided:
+        q, k, v = (torch.randn(b, s, h, d, generator=gen, device="cuda").bfloat16().transpose(1, 2)
+                   for h in (hq, hkv, hkv))
+    else:
+        q, k, v = (torch.randn(b, h, s, d, generator=gen, device="cuda").bfloat16()
+                   for h in (hq, hkv, hkv))
+    kw = dict(scale=d ** -0.5, causal=causal, window=window, softcap=softcap)
+    before = _build.LAUNCHES["flash_attention"]
+    got = flash_attention(q, k, v, **kw)
+    torch.cuda.synchronize()
+    assert _build.LAUNCHES["flash_attention"] == before + 1
+    assert got.stride() == q.stride()
+    _attn_close(got, attention_ref(q, k, v, **kw))
+
+
+def test_flash_attention_tensor_core_route_refuses_unaligned_rows(gen):
+    """TMA reads rows at 16-byte steps: a bf16 view whose position stride is
+    not a multiple of 8 elements is refused before the launch."""
+    x = torch.zeros(1, 2, 8, 68, device="cuda", dtype=torch.bfloat16)[..., :64]
+    before = _build.LAUNCHES["flash_attention"]
+    with pytest.raises(ValueError, match="multiples of 8"):
+        flash_attention(x, x, x, scale=1.0)
+    assert _build.LAUNCHES["flash_attention"] == before
+
+
 def test_smoke_model_on_the_card_equals_the_cpu(gen):
     """A gemma2-shaped smoke model at head_dim 64 (the kernel's smallest):
     the forward on the card goes through the kernel once per layer, decode

@@ -407,13 +407,14 @@ def test_flash_decode_offset_matches_reference():
     np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=0, atol=2e-6)
 
 
+@pytest.mark.parametrize("route", sorted(flash_launch.TILES))
 @pytest.mark.parametrize("s,window,causal", [(200, None, True), (200, 16, True), (1000, 100, True),
                                              (130, 64, True), (8192, 4096, True),
                                              (200, None, False), (150, 40, False)])
-def test_flash_key_tiles_are_exactly_the_reachable_ones(s, window, causal):
-    """The kernel's key-tile range per query tile covers every (q, k) pair
+def test_flash_key_tiles_are_exactly_the_reachable_ones(s, window, causal, route):
+    """Each route's key-tile range per query block covers every (q, k) pair
     the mask keeps and no tile without one (the Pallas kernel's skip)."""
-    t = flash_launch.TILE
+    bq, bk = flash_launch.TILES[route]
     q = np.arange(s)[:, None]
     k = np.arange(s)[None, :]
     keep = np.ones((s, s), bool)
@@ -421,12 +422,12 @@ def test_flash_key_tiles_are_exactly_the_reachable_ones(s, window, causal):
         keep &= q >= k
     if window is not None:
         keep &= q - k < window
-    n_t = cdiv(s, t)
-    keep = np.pad(keep, ((0, n_t * t - s), (0, 0)))            # rows past S keep nothing
-    tiles = keep.reshape(n_t, t, s).any(axis=1)                # (query tile, key)
-    for qt in range(n_t):
-        lo, hi = flash_launch.key_tile_range(qt * t, s, window, causal)
-        reach = [kt for kt in range(n_t) if tiles[qt, kt * t:(kt + 1) * t].any()]
+    n_q, n_k = cdiv(s, bq), cdiv(s, bk)
+    keep = np.pad(keep, ((0, n_q * bq - s), (0, 0)))           # rows past S keep nothing
+    tiles = keep.reshape(n_q, bq, s).any(axis=1)               # (query block, key)
+    for qt in range(n_q):
+        lo, hi = flash_launch.key_tile_range(qt * bq, s, window, causal, (bq, bk))
+        reach = [kt for kt in range(n_k) if tiles[qt, kt * bk:(kt + 1) * bk].any()]
         assert reach == list(range(lo, hi + 1)), (qt, lo, hi)
 
 
