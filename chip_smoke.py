@@ -50,12 +50,21 @@ contrast and confusion RDMs, a probe point's decision values), against
 retraining per fold (binary at P = 3,800, multi-class at P = 1,900), and
 the LM's logits against the plain-attention model and its own forward.
 
-flash_attention's bf16 route must run on the tensor cores: the build phase
-counts the HGMMA instructions in the built library's SASS (cuobjdump) and
-reads ptxas's report of its bf16 instantiations (D = 64, 128, 256), and the
-run fails on no HGMMA or any spill. The `kernels` line times flash at the LM
-paths' shapes (tensor-core route) and at an f32 I/O shape (SIMT route), with
-TFLOP/s on the counted and on the issued operations.
+flash_attention's bf16 route, gram's f32 and bf16 routes and hat_apply's
+f32 route must run on the tensor cores: the build phase counts the HGMMA
+instructions in each built library's SASS (cuobjdump; TF32 ones in libgram
+and libhat_apply, BF16 ones in libgram) and reads ptxas's report of those
+instantiations, and the run fails on no HGMMA or any spill. gram at the main
+shape must also hold the f32 pin against the f64 product, be exactly
+symmetric and bitwise repeatable; hat_apply bitwise repeatable. The
+`kernels` line times flash at the LM paths' shapes (tensor-core route) and
+at an f32 I/O shape (SIMT route), gram and hat_apply at the main path's and
+the probe path's (f64) shapes and gram's bf16_gram build, with TFLOP/s on
+the counted and on the issued operations for the tensor-core routes, and
+every row's device-busy time (torch.profiler) beside its CUDA-event time,
+for the kernel and for the library call. The f32 library calls must run
+full f32 (no TF32): the env line prints the two settings and the run
+fails otherwise.
 
 Each phase prints one JSON line. The line before the last is the card's
 name and power limit from nvidia-smi; the last line is
@@ -89,10 +98,14 @@ MC_CHUNK = 64
 RSA_CONDITIONS = 8
 REPS = 20
 
-# H100 SXM peaks (NVIDIA data sheet): memory 3.35 TB/s; outside the tensor
-# cores f32 67 TFLOP/s and f64 34 TFLOP/s; bf16 tensor cores 989 TFLOP/s.
+# H100 SXM peaks (NVIDIA data sheet, dense): memory 3.35 TB/s; f32 67 TFLOP/s
+# outside the tensor cores; f64 67 TFLOP/s on the tensor cores; TF32 494.7
+# and bf16 989 TFLOP/s on the tensor cores. gram's and hat_apply's f32 routes
+# run on the tensor cores in TF32 (three products for f32-grade results), so
+# their bounds count the f32 function's operations at the TF32 peak.
 PEAK_BYTES = 3.35e12
-PEAK_FLOPS = {torch.float32: 67e12, torch.float64: 34e12, torch.bfloat16: 989e12}
+PEAK_FLOPS = {torch.float32: 67e12, torch.float64: 67e12, torch.bfloat16: 989e12,
+              "tf32": 494.7e12}
 
 # Tolerances, relative to the largest magnitude of the plain result.
 # f32 kernels: the reference pins its fp32 kernels at 1e-5; f64 at 1e-9.
@@ -164,6 +177,47 @@ def cuda_ms(fn, reps: int = REPS, warmup: int = 3) -> float:
         stop.synchronize()
         times.append(start.elapsed_time(stop))
     return statistics.median(times)
+
+
+def device_ms(fn, reps: int = REPS, warmup: int = 3):
+    """Median over ``reps`` calls of ``fn`` of the device-busy time of each
+    call: the union of its kernels', copies' and memsets' intervals from
+    torch.profiler, after warm-up (the sum of their times where they do not
+    overlap; a kernel launched as a programmatic dependent starts before its
+    predecessor ends and waits, and is not counted twice). A short marker
+    kernel (torch.cuda._sleep) runs before each call and after the last, and
+    a call's events are those between two markers: the profiler may drop
+    events, so calls are not told apart by counting. None when fewer than
+    half the calls were seen whole. The calls are not the ones ``cuda_ms``
+    timed: profiling adds host time."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    for _ in range(warmup):
+        fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            torch.cuda._sleep(100)
+            fn()
+        torch.cuda._sleep(100)
+        torch.cuda.synchronize()
+    events = sorted((e for e in prof.events() if e.device_type == DeviceType.CUDA),
+                    key=lambda e: e.time_range.start)
+    marks = [i for i, e in enumerate(events) if "spin_kernel" in e.name]
+    busy = []
+    for a, b in zip(marks, marks[1:]):
+        total, end = 0.0, float("-inf")
+        for e in events[a + 1:b]:
+            total += max(0.0, e.time_range.end - max(e.time_range.start, end))
+            end = max(end, e.time_range.end)
+        if b > a + 1:
+            busy.append(total)
+    if len(busy) < reps // 2:
+        print(f"device_ms: {len(events)} device events, {len(marks)} markers, "
+              f"{len(busy)} whole calls of {reps}", file=sys.stderr)
+        return None
+    return statistics.median(busy) / 1e3
 
 
 def rel_err(got: torch.Tensor, want: torch.Tensor) -> tuple:
@@ -304,14 +358,17 @@ def ptxas_report(log: str) -> dict:
     return out
 
 
-def sass_count(lib: Path, opcode: str) -> int:
-    """Instructions named ``opcode`` in a built library's SASS (cuobjdump of
-    the CUDA toolkit that built it)."""
+def sass_text(lib: Path) -> str:
+    """A built library's SASS (cuobjdump of the CUDA toolkit that built it)."""
     from repro_torch.kernels import _build
     cuobjdump = Path(_build.find_nvcc()).parent / "cuobjdump"
-    sass = subprocess.run([str(cuobjdump), "-sass", str(lib)], capture_output=True, text=True,
+    return subprocess.run([str(cuobjdump), "-sass", str(lib)], capture_output=True, text=True,
                           check=True).stdout
-    return len(re.findall(rf"\b{opcode}\b", sass))
+
+
+def sass_count(lib: Path, opcode: str) -> int:
+    """Instructions named ``opcode`` in a built library's SASS."""
+    return len(re.findall(rf"\b{opcode}\b", sass_text(lib)))
 
 
 def lm_serve_phase(dev):
@@ -501,6 +558,7 @@ def main() -> None:
     from repro_torch.kernels.foldsolve.ops import (fold_jitter,
                                                    fold_residual_bad, foldsolve)
     from repro_torch.kernels.foldsolve.ref import foldsolve_ref
+    from repro_torch.kernels.gram.gram import gram_cuda
     from repro_torch.kernels.gram.ops import centered_gram_plain, gram
     from repro_torch.kernels.gram.ref import gram_ref
     from repro_torch.kernels.hat_apply.ops import hat_errors
@@ -519,9 +577,16 @@ def main() -> None:
     smi = nvidia_smi()
 
     # -- 1. environment ------------------------------------------------------
+    # the library yardsticks (torch.mm, addmm) must run full f32 cuBLAS, not TF32
+    matmul_tf32 = torch.backends.cuda.matmul.allow_tf32
+    f32_precision = torch.get_float32_matmul_precision()
     emit({"phase": "env", "python": sys.version.split()[0], "torch": torch.__version__,
           "cuda": torch.version.cuda, "device": torch.cuda.get_device_name(0),
-          "count": torch.cuda.device_count(), "nvidia_smi": smi})
+          "count": torch.cuda.device_count(), "nvidia_smi": smi,
+          "matmul_allow_tf32": matmul_tf32, "float32_matmul_precision": f32_precision})
+    if matmul_tf32 or f32_precision != "highest":
+        fail(f"f32 matmuls are not full f32 (allow_tf32={matmul_tf32}, "
+             f"precision={f32_precision!r}): the library times would be TF32")
 
     # -- 2. build --------------------------------------------------------------
     t0 = time.perf_counter()
@@ -539,8 +604,21 @@ def main() -> None:
     flash_tc = {int(re.search(r"ILi(\d+)E", k).group(1)): v for k, v in
                 ptxas_report(flash_lib.with_suffix(".log").read_text()).items()
                 if "flash_tc_kernel" in k}
+    # gram's f32 and bf16 routes and hat_apply's f32 route run on the tensor
+    # cores: TF32 (and, for gram's bf16 input, BF16) HGMMA in their SASS, and
+    # no spill in those instantiations
+    tc_libs = {}
+    for name, kernels in (("gram", ("upper_gram_tc_kernel",)), ("hat_apply", ("hat_apply_tc_kernel",))):
+        lib = paths[name]
+        sass = sass_text(lib)
+        tc_libs[name] = {
+            "hgmma_tf32": len(re.findall(r"\bHGMMA\.\S*TF32", sass)),
+            "hgmma_bf16": len(re.findall(r"\bHGMMA\.\S*BF16", sass)),
+            "ptxas": {k: v for k, v in ptxas_report(lib.with_suffix(".log").read_text()).items()
+                      if any(kn in k for kn in kernels)}}
     emit({"phase": "build", "seconds": build_s, "hash": _build.source_hash(),
-          "ptxas": ptxas, "flash_hgmma": hgmma, "flash_tensor_core_ptxas": flash_tc})
+          "ptxas": ptxas, "flash_hgmma": hgmma, "flash_tensor_core_ptxas": flash_tc,
+          "tensor_core_routes": tc_libs})
     if hgmma == 0:
         fail("libflash_attention.so holds no HGMMA instruction: the bf16 route is not on the "
              "tensor cores")
@@ -548,6 +626,14 @@ def main() -> None:
                                                   flash_tc.values()):
         fail(f"flash_attention's bf16 instantiations: want D = 64, 128, 256 with 0 spill "
              f"bytes, ptxas says {flash_tc}")
+    for name, info in tc_libs.items():
+        if info["hgmma_tf32"] == 0 or (name == "gram" and info["hgmma_bf16"] == 0):
+            fail(f"lib{name}.so lacks the tensor-core products of its f32/bf16 routes: {info}")
+        want = 2 if name == "gram" else 1   # gram: the f32 and the bf16 instantiation
+        if len(info["ptxas"]) != want or any(v.get("spill_bytes", 1) for v in
+                                             info["ptxas"].values()):
+            fail(f"{name}'s tensor-core instantiations: want {want} with 0 spill bytes, "
+                 f"ptxas says {info['ptxas']}")
 
     # -- 4. the main path at the paper's MEG/EEG size --------------------------
     ds, t_sim = timed(lambda: eeg.simulate_subject(SEED, n_trials=N_TRIALS, device=dev))
@@ -854,11 +940,12 @@ def main() -> None:
     # main-path shapes: these four also give the kernels line
     xc64 = xc.double()
     g_exact = gram_ref(xc64)
+    g_main, e_main = gram(xc), hat_errors(plan.h, yp)
     main_err = {
-        "gram": check("gram", "main (787, 76000) f32", gram(xc), gram_ref(xc), TOL[f32],
+        "gram": check("gram", "main (787, 76000) f32", g_main, gram_ref(xc), TOL[f32],
                       g_exact),
         "hat_apply": check("hat_apply", "main (787, 787)x(787, 250) f32",
-                           hat_errors(plan.h, yp), hat_apply_ref(plan.h, yp), TOL[f32]),
+                           e_main, hat_apply_ref(plan.h, yp), TOL[f32]),
         "foldsolve": check("foldsolve", "main K=10 m=78 B=250 f32",
                            foldsolve(h_te, e_te, jitter=None), foldsolve_ref(h_te, e_te),
                            TOL[f32]),
@@ -866,6 +953,18 @@ def main() -> None:
                            fold_eval(h_rows, h_te, y1, y1_te, jitter=None),
                            fold_eval_ref(h_rows, h_te, y1, y1_te)[0], TOL[f32]),
     }
+    # the tensor-core routes at the main shapes: gram within the f32 pin of
+    # the f64 product too, exactly symmetric; both bitwise repeatable (fixed
+    # sum orders, no atomics)
+    g_row = checks[0]
+    g_row["kernel_vs_f64_ok"] = g_row["kernel_vs_f64"] <= TOL[f32] * rel_err(g_exact, g_exact)[1]
+    g_row["symmetric"] = torch.equal(g_main, g_main.T)
+    g_row["repeatable"] = torch.equal(g_main, gram(xc))
+    g_row["ok"] = g_row["ok"] and g_row["kernel_vs_f64_ok"] and g_row["symmetric"] \
+        and g_row["repeatable"]
+    checks[1]["repeatable"] = torch.equal(e_main, hat_errors(plan.h, yp))
+    checks[1]["ok"] = checks[1]["ok"] and checks[1]["repeatable"]
+    del e_main
     # ragged shapes (no dimension a multiple of a tile) and f64
     gen = torch.Generator(device=dev)
     gen.manual_seed(SEED)
@@ -889,10 +988,9 @@ def main() -> None:
     x64c = x64 - x64.mean(dim=0, keepdim=True)
     check("gram", "main (787, 76000) f64", gram(x64c), gram_ref(x64c), TOL[f64])
     del x64c, xc64, g_exact
-    xb = xc.to(torch.bfloat16)
-    check("gram", "bf16_gram (787, 76000)", gram(xc, precision="bf16_gram"),
-          gram_ref(xb), TOL[torch.bfloat16], gram_ref(xb.double()))
-    del xb
+    xb_main = xc.to(torch.bfloat16)
+    bf16_gram_err = check("gram", "bf16_gram (787, 76000)", gram(xc, precision="bf16_gram"),
+                          gram_ref(xb_main), TOL[torch.bfloat16], gram_ref(xb_main.double()))
     # foldsolve at m = 1 (leave-one-out) and m = 393 (K = 2: global scratch)
     for kk, fs in (("m=1 (LOO, K=787)", folds_mod.loo(n, device=dev)),
                    ("m=393 (K=2)", folds_mod.kfold(n, 2, seed=SEED, device=dev))):
@@ -1046,14 +1144,14 @@ def main() -> None:
          "replaces": "src/repro/kernels/gram/gram.py:47",
          "kernel": lambda: gram(xc), "plain": lambda: gram_ref(xc),
          "library": lambda: torch.mm(xc, xc.T),
-         "bytes": (n * p + n * n) * f4, "flops": n * (n + 1) * p,
-         "shape": f"X ({n}, {p}) f32"},
+         "bytes": (n * p + n * n) * f4, "flops": n * (n + 1) * p, "dtype": "tf32",
+         "issued": 3 * n * (n + 1) * p, "shape": f"X ({n}, {p}) f32"},
         {"name": "hat_apply", "source": "src/repro_torch/csrc/hat_apply.cu",
          "replaces": "src/repro/kernels/hat_apply/hat_apply.py:48",
          "kernel": lambda: hat_errors(plan.h, yp), "plain": lambda: hat_apply_ref(plan.h, yp),
          "library": lambda: torch.addmm(yp, plan.h, yp, alpha=-1.0),
-         "bytes": (n * n + 2 * n * b_) * f4, "flops": 2 * n * n * b_,
-         "shape": f"H ({n}, {n}), Y ({n}, {b_}) f32"},
+         "bytes": (n * n + 2 * n * b_) * f4, "flops": 2 * n * n * b_, "dtype": "tf32",
+         "issued": 3 * 2 * n * n * b_, "shape": f"H ({n}, {n}), Y ({n}, {b_}) f32"},
         {"name": "foldsolve", "source": "src/repro_torch/csrc/foldsolve.cu",
          "replaces": "src/repro/kernels/foldsolve/foldsolve.py:71",
          "kernel": lambda: foldsolve(h_te, e_te, jitter=None),
@@ -1075,20 +1173,77 @@ def main() -> None:
     by_path = {"binary": launches, "multiclass": launches_mc, "rsa": launches_rsa,
                "lm_serve": launches_serve, "lm_probe": launches_probe}
 
+    # the lm_probe path's own f64 shapes: 384 sequences of d_model 2,304
+    # features, K = 6 folds of 64, permutation chunks of 64 labels (random
+    # features of that size, their plan, a chunk of ±1 labels)
+    nq, bq = 2 * PROBE_PER_CLASS, min(N_PERM, 64)
+    xq = torch.randn(nq, lm_cfg.d_model, generator=gen, device=dev, dtype=f64)
+    xqc = xq - xq.mean(dim=0, keepdim=True)
+    planq = fastcv.prepare(xq, folds_mod.kfold(nq, PROBE_FOLDS, seed=SEED, device=dev),
+                           lam_rule(xq))
+    yq = torch.where(torch.rand(nq, bq, generator=gen, device=dev) < 0.5, 1.0, -1.0).to(f64)
+    teq = planq.te_idx
+    hq_te = planq.h[teq[:, :, None], teq[:, None, :]]
+    eq_te = hat_errors(planq.h, yq)[teq]
+    kq, mq = teq.shape
+    eye_q = torch.eye(mq, device=dev, dtype=f64).expand(kq, mq, mq)
+    f8 = 8
+    probe_rows = {
+        "gram": {"kernel": lambda: gram(xqc), "plain": lambda: gram_ref(xqc),
+                 "library": lambda: torch.mm(xqc, xqc.T),
+                 "bytes": (nq * xq.shape[1] + nq * nq) * f8, "flops": nq * (nq + 1) * xq.shape[1],
+                 "dtype": f64, "shape": f"lm_probe: X ({nq}, {xq.shape[1]}) f64"},
+        "hat_apply": {"kernel": lambda: hat_errors(planq.h, yq),
+                      "plain": lambda: hat_apply_ref(planq.h, yq),
+                      "library": lambda: torch.addmm(yq, planq.h, yq, alpha=-1.0),
+                      "bytes": (nq * nq + 2 * nq * bq) * f8, "flops": 2 * nq * nq * bq,
+                      "dtype": f64, "shape": f"lm_probe: H ({nq}, {nq}), Y ({nq}, {bq}) f64"},
+        "foldsolve": {"kernel": lambda: foldsolve(hq_te, eq_te, jitter=None),
+                      "plain": lambda: foldsolve_ref(hq_te, eq_te),
+                      "library": lambda: torch.linalg.solve(eye_q - hq_te, eq_te),
+                      "bytes": (kq * mq * mq + 2 * kq * mq * bq) * f8,
+                      "flops": kq * (2 * mq ** 3 / 3 + 2 * mq * mq * bq), "dtype": f64,
+                      "shape": f"lm_probe: h_te ({kq}, {mq}, {mq}), e ({kq}, {mq}, {bq}) f64"},
+    }
+    for name, r in probe_rows.items():
+        r["launches"] = launches_probe[name]
+        r["max_abs_err"] = rel_err(r["kernel"](), r["plain"]())[0]
+
     def timing(r):
         b_ms, b_by = bound(r["bytes"], r["flops"], r.get("dtype", torch.float32))
         k_ms = cuda_ms(r["kernel"])
-        return {"ms": k_ms, "kernel_ms": k_ms, "plain_ms": cuda_ms(r["plain"]),
-                "bound_ms": b_ms, "bound_by": b_by, "library_ms": cuda_ms(r["library"]),
-                "shape": r["shape"]}
+        lib = r["library"]
+        out = {"ms": k_ms, "kernel_ms": k_ms, "device_ms": device_ms(r["kernel"]),
+               "plain_ms": cuda_ms(r["plain"]), "bound_ms": b_ms, "bound_by": b_by,
+               "library_ms": cuda_ms(lib) if lib else None,
+               "library_device_ms": device_ms(lib) if lib else None, "shape": r["shape"]}
+        if "issued" in r:   # the tensor-core routes: TFLOP/s counted and issued
+            out["tflops_counted"] = r["flops"] / k_ms / 1e9
+            out["tflops_issued"] = r["issued"] / k_ms / 1e9
+        return out
 
     kernels = []
     for r in rows:
-        kernels.append({
+        main_t = timing(r)
+        entry = {
             "name": r["name"], "route": "cuda", "source": r["source"],
             "replaces": r["replaces"], "launches": launches[r["name"]],
             "launches_by_path": {k: v[r["name"]] for k, v in by_path.items()},
-            "max_abs_err": main_err[r["name"]], "tol": TOL[f32], **timing(r)})
+            "max_abs_err": main_err[r["name"]], "tol": TOL[f32], **main_t}
+        if r["name"] in probe_rows:
+            pr = probe_rows[r["name"]]
+            entry["shapes"] = [{**main_t, "max_abs_err": main_err[r["name"]]},
+                               {**timing(pr), "max_abs_err": pr["max_abs_err"],
+                                "launches": pr["launches"], "tol": TOL[f64]}]
+        if r["name"] == "gram":   # the bf16_gram build: bf16 products, no library call
+            entry["shapes"].append({**timing({
+                "kernel": lambda: gram_cuda(xb_main), "plain": lambda: gram_ref(xb_main),
+                "library": None, "bytes": n * p * 2 + n * n * f4, "flops": n * (n + 1) * p,
+                "dtype": torch.bfloat16, "issued": n * (n + 1) * p,
+                "shape": f"bf16_gram: X ({n}, {p}) bf16 in, f32 out"}),
+                "max_abs_err": bf16_gram_err, "tol": TOL[torch.bfloat16],
+                "library_note": "no single PyTorch call takes bf16 in and gives f32 out"})
+        kernels.append(entry)
     # pairdist: the RSA path's shape (its launches) and a trial-level RDM
     shapes = []
     for u in (means8, x8):

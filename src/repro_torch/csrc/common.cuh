@@ -9,6 +9,9 @@
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
+#include <atomic>
+#include <cstdint>
+
 namespace repro {
 
 constexpr int kThreads = 256;
@@ -30,6 +33,20 @@ inline cudaError_t set_smem(Kernel kernel, size_t bytes) {
   if (bytes <= 48 * 1024) return cudaSuccess;
   return cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
                               static_cast<int>(bytes));
+}
+
+// set_smem once per device: `done` is the launching function's own flag
+// word (one bit per device), so later launches skip the runtime call.
+template <typename Kernel>
+inline cudaError_t set_smem_once(std::atomic<uint32_t>& done, Kernel kernel, size_t bytes) {
+  int dev = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err != cudaSuccess) return err;
+  const uint32_t bit = 1u << (dev & 31);
+  if (done.load(std::memory_order_acquire) & bit) return cudaSuccess;
+  err = set_smem(kernel, bytes);
+  if (err == cudaSuccess) done.fetch_or(bit, std::memory_order_release);
+  return err;
 }
 
 }  // namespace repro

@@ -47,8 +47,8 @@ _F = ctypes.c_float
 ARGTYPES = {
     # (x, ws, g, n, p, splits, stream)
     "gram": {f"gram_{t}": (_P, _P, _P, _I, _I, _I, _P) for t in ("f32", "f64", "bf16")},
-    # (h, y, e, n, b, stream)
-    "hat_apply": {f"hat_apply_{t}": (_P, _P, _P, _I, _I, _P) for t in ("f32", "f64")},
+    # (h, y, ws, e, n, b, splits, stream)
+    "hat_apply": {f"hat_apply_{t}": (_P, _P, _P, _P, _I, _I, _I, _P) for t in ("f32", "f64")},
     # (h_te, e, shift, bad, out, scratch, k, m, b, bb, stream)
     "foldsolve": {f"foldsolve_{t}": (_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P)
                   for t in ("f32", "f64")},
@@ -150,11 +150,19 @@ def load(name: str) -> ctypes.CDLL:
 def launch(kernel: str, symbol: str, device: torch.device, *args) -> None:
     """Call one C entry point on ``device``'s current stream; count it; raise
     on error. ``args`` are the entry point's arguments before the stream:
-    tensors pass their data pointer, ``None`` a null pointer."""
-    lib = load(kernel)
+    tensors pass their data pointer, ``None`` a null pointer. The entry point
+    runs on the current device; another device is made current around it."""
+    lib = _libs.get(kernel) or load(kernel)
+    fn = getattr(lib, symbol)
     args = [a.data_ptr() if isinstance(a, torch.Tensor) else a for a in args]
-    with torch.cuda.device(device):
-        err = getattr(lib, symbol)(*args, torch.cuda.current_stream().cuda_stream)
+    # the raw handle of the device's current stream, without building a
+    # torch.cuda.Stream object on every launch
+    stream = torch._C._cuda_getCurrentRawStream(device.index)
+    if device.index == torch.cuda.current_device():
+        err = fn(*args, stream)
+    else:
+        with torch.cuda.device(device):
+            err = fn(*args, stream)
     if err != 0:
         msg = lib.repro_cuda_error_string(err).decode()
         raise RuntimeError(f"{symbol}: CUDA launch failed with error {err} ({msg})")

@@ -15,15 +15,22 @@ Two rules hold across the package:
 
 from __future__ import annotations
 
+import functools
 from typing import Optional, Union
 
 import torch
 
-__all__ = ["cdiv", "default_fused", "resolve_device", "require_cuda"]
+__all__ = ["cdiv", "default_fused", "resolve_device", "require_cuda", "sm_count"]
 
 
 def cdiv(a: int, b: int) -> int:
     return -(-a // b)
+
+
+@functools.lru_cache(maxsize=None)
+def sm_count(device: torch.device) -> int:
+    """Streaming multiprocessors of a CUDA device, read once per device."""
+    return torch.cuda.get_device_properties(device).multi_processor_count
 
 
 def resolve_device(device: Optional[Union[str, torch.device]] = None) -> torch.device:

@@ -73,6 +73,49 @@ def test_hat_apply_kernel(gen, dtype, n, b):
     _close(_launched("hat_apply", lambda: hat_errors(h, y)), hat_apply_ref(h, y), TOL[dtype])
 
 
+# The f32 and bf16 routes of gram and the f32 route of hat_apply run on the
+# tensor cores (TF32 products of a big + small split for f32): within the f32
+# pin of the plain version and of the f64 product, G exactly symmetric, and
+# both bitwise equal across calls (fixed sum orders, no atomics).
+@pytest.mark.parametrize("n,p", [(130, 1037), (787, 76000)])
+def test_gram_tensor_core_route_is_symmetric_and_repeatable(gen, n, p):
+    x = torch.randn(n, p, generator=gen, device="cuda")
+    got = _launched("gram", lambda: gram(x))
+    assert torch.equal(got, got.T) and torch.equal(got, gram(x))
+    _close(got, gram_ref(x), TOL[torch.float32])
+    _close(got.double(), gram_ref(x.double()), TOL[torch.float32])
+
+
+@pytest.mark.parametrize("n,p", [(8, 16), (130, 1037), (787, 5000)])
+def test_bf16_gram_kernel(gen, n, p):
+    x = torch.randn(n, p, generator=gen, device="cuda")
+    got = _launched("gram", lambda: gram(x, precision="bf16_gram"))
+    assert got.dtype == torch.float32 and torch.equal(got, got.T)
+    _close(got, gram_ref(x.to(torch.bfloat16)), TOL[torch.float32])
+
+
+@pytest.mark.parametrize("b", [1, 3, 64, 250])
+@pytest.mark.parametrize("n", [16, 131, 787])
+def test_hat_apply_tensor_core_route(gen, n, b):
+    h = torch.randn(n, n, generator=gen, device="cuda") / n
+    y = torch.randn(n, b, generator=gen, device="cuda")
+    got = _launched("hat_apply", lambda: hat_errors(h, y))
+    assert torch.equal(got, hat_errors(h, y))
+    _close(got, hat_apply_ref(h, y), TOL[torch.float32])
+    _close(got.double(), hat_apply_ref(h.double(), y.double()), TOL[torch.float32])
+
+
+def test_hat_apply_tensor_core_route_refuses_unaligned_data(gen):
+    """The f32 route copies H and Y in aligned 16-byte pieces: a view that
+    starts 4 bytes into its storage is refused before the launch."""
+    h = torch.randn(17, 17, generator=gen, device="cuda")
+    y = torch.randn(18, 2, generator=gen, device="cuda").flatten()[1:35].view(17, 2)
+    before = _build.LAUNCHES["hat_apply"]
+    with pytest.raises(ValueError, match="16-byte aligned"):
+        hat_errors(h, y)
+    assert _build.LAUNCHES["hat_apply"] == before
+
+
 def _h_te(gen, k, m, dtype):
     a = torch.randn(k, m, m, generator=gen, device="cuda", dtype=dtype) / (3 * m ** 0.5)
     return -(a @ a.transpose(1, 2))
