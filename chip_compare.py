@@ -8,14 +8,17 @@ Run from the repository root, with another checkout unpacked beside it
 
 Each side runs in its own process (both packages are named
 ``repro_torch``), in the order other, this, this, other, on the same
-inputs made from a seed: gram at the main path's X (787, 76,000) f32 and
-hat_apply at H (787, 787), Y (787, 250) f32, beside ``torch.mm`` and
-``torch.addmm`` at full f32. Each row is the CUDA-event time of the
-Python call (median of 20 after 3 warm-ups, host launch path included)
-and its device-busy time (torch.profiler), as ``chip_smoke.py`` times the
-``kernels`` line. Prints one JSON line per run and, last, the card's name
-and power limit. Needs a CUDA device; builds each side's kernels with
-nvcc at first use.
+inputs made from a seed: gram at the main path's X (787, 76,000) in f32
+and f64 and at the lm_probe path's X (384, 2,304) in f64; hat_apply at
+H (787, 787), Y (787, 250) in f32 and f64 and at the lm_probe path's
+H (384, 384), Y (384, 64) in f64; each beside ``torch.mm`` or
+``torch.addmm`` in the same dtype (f32 at full f32, no TF32). Each row
+is the CUDA-event time of the Python call (median of 20 after 3
+warm-ups, host launch path included), its device-busy time
+(torch.profiler), as ``chip_smoke.py`` times the ``kernels`` line, and
+each launched kernel's mean device µs per call. Prints one JSON line per
+run and, last, the card's name and power limit. Needs a CUDA device;
+builds each side's kernels with nvcc at first use.
 """
 
 from __future__ import annotations
@@ -26,6 +29,24 @@ import sys
 from pathlib import Path
 
 ROOT = Path(__file__).resolve().parent
+
+
+def kernel_us(fn, reps: int = 10) -> dict:
+    """Mean device µs per call of each kernel ``fn`` launches (torch.profiler,
+    after 3 warm-ups). A programmatic dependent kernel starts before its
+    predecessor ends and waits, so its time includes that wait."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    for _ in range(3):
+        fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    return {e.key[:48]: e.self_device_time_total / reps for e in prof.key_averages()
+            if e.self_device_time_total > 0}
 
 
 def side(src: str) -> dict:
@@ -44,15 +65,24 @@ def side(src: str) -> dict:
     torch.backends.cuda.matmul.allow_tf32 = False
     gen = torch.Generator(device="cuda")
     gen.manual_seed(cs.SEED)
-    x = torch.randn(787, 76000, generator=gen, device="cuda")
-    xc = x - x.mean(dim=0, keepdim=True)
-    h = torch.randn(787, 787, generator=gen, device="cuda") / 787
-    y = torch.randn(787, 250, generator=gen, device="cuda")
     out = {"package": str(Path(repro_torch.__file__).parent.parent.parent)}
-    for name, fn in (("gram", lambda: gram(xc)), ("torch.mm", lambda: torch.mm(xc, xc.T)),
-                     ("hat_apply", lambda: hat_errors(h, y)),
-                     ("torch.addmm", lambda: torch.addmm(y, h, y, alpha=-1.0))):
-        out[name] = {"ms": cs.cuda_ms(fn), "device_ms": cs.device_ms(fn)}
+    for dt, (n, p), (nh, b) in ((torch.float32, (787, 76000), (787, 250)),
+                                (torch.float64, (384, 2304), (384, 64)),
+                                (torch.float64, (787, 76000), (787, 250))):
+        x = torch.randn(n, p, generator=gen, device="cuda", dtype=dt)
+        xc = x - x.mean(dim=0, keepdim=True)
+        del x
+        h = torch.randn(nh, nh, generator=gen, device="cuda", dtype=dt) / nh
+        y = torch.randn(nh, b, generator=gen, device="cuda", dtype=dt)
+        name = str(dt).removeprefix("torch.")
+        for row, fn in ((f"gram {name} ({n}, {p})", lambda: gram(xc)),
+                        (f"torch.mm {name} ({n}, {p})", lambda: torch.mm(xc, xc.T)),
+                        (f"hat_apply {name} ({nh}, {nh})x({nh}, {b})", lambda: hat_errors(h, y)),
+                        (f"torch.addmm {name} ({nh}, {nh})x({nh}, {b})",
+                         lambda: torch.addmm(y, h, y, alpha=-1.0))):
+            out[row] = {"ms": cs.cuda_ms(fn), "device_ms": cs.device_ms(fn),
+                        "kernel_us": kernel_us(fn)}
+        del xc, h, y
     return out
 
 

@@ -54,12 +54,17 @@ flash_attention's bf16 route, gram's f32 and bf16 routes and hat_apply's
 f32 route must run on the tensor cores: the build phase counts the HGMMA
 instructions in each built library's SASS (cuobjdump; TF32 ones in libgram
 and libhat_apply, BF16 ones in libgram) and reads ptxas's report of those
-instantiations, and the run fails on no HGMMA or any spill. gram at the main
-shape must also hold the f32 pin against the f64 product, be exactly
-symmetric and bitwise repeatable; hat_apply bitwise repeatable. The
-`kernels` line times flash at the LM paths' shapes (tensor-core route) and
-at an f32 I/O shape (SIMT route), gram and hat_apply at the main path's and
-the probe path's (f64) shapes and gram's bf16_gram build, with TFLOP/s on
+instantiations, and the run fails on no HGMMA or any spill. Their f64
+routes must run on the FP64 tensor cores: DMMA in the SASS of
+upper_gram_dmma_kernel and hat_apply_dmma_kernel, and no spill in either.
+gram at the main shape must also hold the f32 pin against the f64 product,
+be exactly symmetric and bitwise repeatable (f64: within 1e-9, symmetric
+and repeatable at the main and a ragged shape); hat_apply bitwise
+repeatable (f64 too, and at the x64 label vector's B = 1). The `kernels`
+line times flash at the LM paths' shapes (tensor-core route) and at an
+f32 I/O shape (SIMT route), gram and hat_apply at the main path's shapes
+in f32 and f64 and at the probe path's (f64) shapes, and gram's bf16_gram
+build (beside torch.mm with out_dtype=float32 where torch has it), with TFLOP/s on
 the counted and on the issued operations for the tensor-core routes, and
 every row's device-busy time (torch.profiler) beside its CUDA-event time,
 for the kernel and for the library call. The f32 library calls must run
@@ -371,6 +376,24 @@ def sass_count(lib: Path, opcode: str) -> int:
     return len(re.findall(rf"\b{opcode}\b", sass_text(lib)))
 
 
+def sass_functions(sass: str) -> dict:
+    """{kernel symbol: its SASS} from cuobjdump's listing."""
+    parts = re.split(r"^\s*Function : (\S+)\s*$", sass, flags=re.M)
+    return dict(zip(parts[1::2], parts[2::2]))
+
+
+def bf16_mm_f32(xb: torch.Tensor) -> tuple:
+    """(the library call for the bf16_gram row, a note): ``torch.mm(xb, xb.T,
+    out_dtype=torch.float32)`` (bf16 in, f32 out) where this torch has it,
+    else (None, why not)."""
+    try:
+        torch.mm(xb[:2], xb[:2].T, out_dtype=torch.float32)
+    except (TypeError, RuntimeError) as err:
+        return None, f"torch.mm(..., out_dtype=torch.float32) is not available: {err}"
+    return (lambda: torch.mm(xb, xb.T, out_dtype=torch.float32),
+            "torch.mm(xb, xb.T, out_dtype=torch.float32)")
+
+
 def lm_serve_phase(dev):
     """gemma2-2b at full width and depth: serve (prefill + greedy decode), a
     long prefill, the flash kernel against attention_ref in the same model,
@@ -607,18 +630,26 @@ def main() -> None:
     # gram's f32 and bf16 routes and hat_apply's f32 route run on the tensor
     # cores: TF32 (and, for gram's bf16 input, BF16) HGMMA in their SASS, and
     # no spill in those instantiations
-    tc_libs = {}
-    for name, kernels in (("gram", ("upper_gram_tc_kernel",)), ("hat_apply", ("hat_apply_tc_kernel",))):
+    tc_libs, dmma_libs = {}, {}
+    for name, kernel, dmma_kernel in (("gram", "upper_gram_tc_kernel", "upper_gram_dmma_kernel"),
+                                      ("hat_apply", "hat_apply_tc_kernel",
+                                       "hat_apply_dmma_kernel")):
         lib = paths[name]
         sass = sass_text(lib)
+        report = ptxas_report(lib.with_suffix(".log").read_text())
         tc_libs[name] = {
             "hgmma_tf32": len(re.findall(r"\bHGMMA\.\S*TF32", sass)),
             "hgmma_bf16": len(re.findall(r"\bHGMMA\.\S*BF16", sass)),
-            "ptxas": {k: v for k, v in ptxas_report(lib.with_suffix(".log").read_text()).items()
-                      if any(kn in k for kn in kernels)}}
+            "ptxas": {k: v for k, v in report.items() if kernel in k}}
+        # the f64 route runs on the FP64 tensor cores: DMMA in its kernel's
+        # SASS, and no spill
+        dmma_libs[name] = {
+            "dmma": sum(len(re.findall(r"\bDMMA\b", body))
+                        for fn, body in sass_functions(sass).items() if dmma_kernel in fn),
+            "ptxas": {k: v for k, v in report.items() if dmma_kernel in k}}
     emit({"phase": "build", "seconds": build_s, "hash": _build.source_hash(),
           "ptxas": ptxas, "flash_hgmma": hgmma, "flash_tensor_core_ptxas": flash_tc,
-          "tensor_core_routes": tc_libs})
+          "tensor_core_routes": tc_libs, "fp64_tensor_core_routes": dmma_libs})
     if hgmma == 0:
         fail("libflash_attention.so holds no HGMMA instruction: the bf16 route is not on the "
              "tensor cores")
@@ -634,6 +665,11 @@ def main() -> None:
                                              info["ptxas"].values()):
             fail(f"{name}'s tensor-core instantiations: want {want} with 0 spill bytes, "
                  f"ptxas says {info['ptxas']}")
+    for name, info in dmma_libs.items():
+        if info["dmma"] == 0 or len(info["ptxas"]) != 1 or any(
+                v.get("spill_bytes", 1) for v in info["ptxas"].values()):
+            fail(f"lib{name}.so's f64 route: want DMMA in its kernel's SASS and 0 spill bytes, "
+                 f"got {info}")
 
     # -- 4. the main path at the paper's MEG/EEG size --------------------------
     ds, t_sim = timed(lambda: eeg.simulate_subject(SEED, n_trials=N_TRIALS, device=dev))
@@ -968,9 +1004,21 @@ def main() -> None:
     # ragged shapes (no dimension a multiple of a tile) and f64
     gen = torch.Generator(device=dev)
     gen.manual_seed(SEED)
+
+    def held_exact(row, got, again, symmetric=False):
+        """The f64 tensor-core routes: bitwise repeatable (fixed sum orders,
+        no atomics); G exactly symmetric."""
+        row["repeatable"] = torch.equal(got, again)
+        if symmetric:
+            row["symmetric"] = torch.equal(got, got.T)
+        row["ok"] = row["ok"] and row["repeatable"] and row.get("symmetric", True)
+
     for dt in (f32, f64):
         xr = torch.randn(130, 1037, generator=gen, device=dev, dtype=dt)
-        check("gram", f"ragged (130, 1037) {dt}", gram(xr), gram_ref(xr), TOL[dt])
+        g_r = gram(xr)
+        check("gram", f"ragged (130, 1037) {dt}", g_r, gram_ref(xr), TOL[dt])
+        if dt == f64:
+            held_exact(checks[-1], g_r, gram(xr), symmetric=True)
         hr = torch.randn(131, 131, generator=gen, device=dev, dtype=dt) / 131
         yr = torch.randn(131, 70, generator=gen, device=dev, dtype=dt)
         check("hat_apply", f"ragged N=131 B=70 {dt}", hat_errors(hr, yr),
@@ -985,9 +1033,23 @@ def main() -> None:
         check("fold_eval", f"ragged K=3 m=17 N=131 B=70 {dt}",
               fold_eval(hrows, htr, yr, yte, jitter=None),
               fold_eval_ref(hrows, htr, yr, yte)[0], TOL[dt])
+    # the f64 routes at the main size: gram of the centered f64 design;
+    # hat_apply on an f64 copy of the main plan's H, a permutation chunk and
+    # the x64 binary_cv label vector (B = 1)
     x64c = x64 - x64.mean(dim=0, keepdim=True)
-    check("gram", "main (787, 76000) f64", gram(x64c), gram_ref(x64c), TOL[f64])
-    del x64c, xc64, g_exact
+    g64 = gram(x64c)
+    h64, yp64 = plan.h.double(), yp.double()
+    e64 = hat_errors(h64, yp64)
+    main64_err = {
+        "gram": check("gram", "main (787, 76000) f64", g64, gram_ref(x64c), TOL[f64]),
+        "hat_apply": check("hat_apply", "main (787, 787)x(787, 250) f64", e64,
+                           hat_apply_ref(h64, yp64), TOL[f64])}
+    held_exact(checks[-2], g64, gram(x64c), symmetric=True)
+    held_exact(checks[-1], e64, hat_errors(h64, yp64))
+    y64 = y.double()
+    check("hat_apply", "x64 labels N=787 B=1 f64", hat_errors(h64, y64),
+          hat_apply_ref(h64, y64[:, None])[:, 0], TOL[f64])
+    del xc64, g_exact, g64, e64
     xb_main = xc.to(torch.bfloat16)
     bf16_gram_err = check("gram", "bf16_gram (787, 76000)", gram(xc, precision="bf16_gram"),
                           gram_ref(xb_main), TOL[torch.bfloat16], gram_ref(xb_main.double()))
@@ -1208,6 +1270,19 @@ def main() -> None:
     for name, r in probe_rows.items():
         r["launches"] = launches_probe[name]
         r["max_abs_err"] = rel_err(r["kernel"](), r["plain"]())[0]
+    # the f64 routes at the main size (the x64 binary_cv's gram, and
+    # hat_apply at a permutation chunk's width)
+    main64_rows = {
+        "gram": {"kernel": lambda: gram(x64c), "plain": lambda: gram_ref(x64c),
+                 "library": lambda: torch.mm(x64c, x64c.T),
+                 "bytes": (n * p + n * n) * f8, "flops": n * (n + 1) * p, "dtype": f64,
+                 "shape": f"X ({n}, {p}) f64"},
+        "hat_apply": {"kernel": lambda: hat_errors(h64, yp64),
+                      "plain": lambda: hat_apply_ref(h64, yp64),
+                      "library": lambda: torch.addmm(yp64, h64, yp64, alpha=-1.0),
+                      "bytes": (n * n + 2 * n * b_) * f8, "flops": 2 * n * n * b_, "dtype": f64,
+                      "shape": f"H ({n}, {n}), Y ({n}, {b_}) f64"},
+    }
 
     def timing(r):
         b_ms, b_by = bound(r["bytes"], r["flops"], r.get("dtype", torch.float32))
@@ -1235,14 +1310,18 @@ def main() -> None:
             entry["shapes"] = [{**main_t, "max_abs_err": main_err[r["name"]]},
                                {**timing(pr), "max_abs_err": pr["max_abs_err"],
                                 "launches": pr["launches"], "tol": TOL[f64]}]
-        if r["name"] == "gram":   # the bf16_gram build: bf16 products, no library call
+        if r["name"] in main64_rows:
+            entry["shapes"].append({**timing(main64_rows[r["name"]]),
+                                    "max_abs_err": main64_err[r["name"]], "tol": TOL[f64]})
+        if r["name"] == "gram":   # the bf16_gram build: bf16 products, f32 out
+            bf16_lib, bf16_note = bf16_mm_f32(xb_main)
             entry["shapes"].append({**timing({
                 "kernel": lambda: gram_cuda(xb_main), "plain": lambda: gram_ref(xb_main),
-                "library": None, "bytes": n * p * 2 + n * n * f4, "flops": n * (n + 1) * p,
-                "dtype": torch.bfloat16, "issued": n * (n + 1) * p,
+                "library": bf16_lib, "bytes": n * p * 2 + n * n * f4,
+                "flops": n * (n + 1) * p, "dtype": torch.bfloat16, "issued": n * (n + 1) * p,
                 "shape": f"bf16_gram: X ({n}, {p}) bf16 in, f32 out"}),
                 "max_abs_err": bf16_gram_err, "tol": TOL[torch.bfloat16],
-                "library_note": "no single PyTorch call takes bf16 in and gives f32 out"})
+                "library_note": bf16_note})
         kernels.append(entry)
     # pairdist: the RSA path's shape (its launches) and a trial-level RDM
     shapes = []

@@ -249,6 +249,12 @@ def cv_errors_fused(plan: CVPlan, y: torch.Tensor):
     """
     squeeze = y.ndim == 1
     y = (y[:, None] if squeeze else y).contiguous()
+    if y.dtype == torch.float32 and y.data_ptr() % 16:
+        # a contiguous view can start at any element, such as a row of a
+        # (T, N) label tensor; hat_apply's f32 route copies Y in aligned
+        # 16-byte pieces, so such labels are copied to fresh storage first
+        # (the f64 route takes any 8-byte offset)
+        y = y.clone()
     te = plan.te_idx
     h_te = _fold_blocks(plan.h, te)                        # (K, m, m)
     y_te = y[te]                                           # (K, m, B)

@@ -49,6 +49,44 @@ inline cudaError_t set_smem_once(std::atomic<uint32_t>& done, Kernel kernel, siz
   return err;
 }
 
+// Σ_s ws[s·total + src] over `splits` partials, added in split order (as
+// upper_gram.cuh's split_sum), with the loads issued eight at a time: a
+// reduce pass's threads wait on one round trip per eight partials, not one
+// per partial.
+template <typename T>
+__device__ __forceinline__ T ordered_split_sum(const T* __restrict__ ws, size_t src, size_t total,
+                                               int splits) {
+  T sum = ws[src];
+  for (int s = 1; s < splits; s += 8) {
+    T v[8];
+#pragma unroll
+    for (int i = 0; i < 8; ++i)
+      if (s + i < splits) v[i] = ws[static_cast<size_t>(s + i) * total + src];
+#pragma unroll
+    for (int i = 0; i < 8; ++i)
+      if (s + i < splits) sum += v[i];
+  }
+  return sum;
+}
+
+// Launch `kernel` as a programmatic dependent of the work before it on
+// `stream`: its blocks may start while that work ends, and must wait for it
+// (griddepcontrol.wait) before reading what it wrote.
+template <typename... Params, typename... Args>
+inline cudaError_t launch_dependent(void (*kernel)(Params...), dim3 grid, dim3 block,
+                                    cudaStream_t stream, Args... args) {
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = grid;
+  cfg.blockDim = block;
+  cfg.stream = stream;
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeProgrammaticStreamSerialization;
+  attr[0].val.programmaticStreamSerializationAllowed = 1;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  return cudaLaunchKernelEx(&cfg, kernel, args...);
+}
+
 }  // namespace repro
 
 extern "C" const char* repro_cuda_error_string(int err) {

@@ -38,10 +38,33 @@
 // Each chunk's products go into a fresh accumulator that is added, rounded
 // to nearest, to a running total (the tensor cores' accumulation truncates).
 //
-// f64 keeps the SIMT tile (tile.cuh), accumulated in f64.
-#include "tile.cuh"
-#include "upper_gram.cuh"      // split_sum, stride_blocks
-#include "upper_gram_tc.cuh"   // store16 and the sm90 primitives
+// f64 runs on the FP64 tensor cores (DMMA, mma.sync m16n8k8; f64 has no
+// wgmma), on the f64 primitives gram's route uses (dmma.cuh). At the lm_probe
+// path's H (384, 384), Y (384, 64) it is 1.9e7 FLOP against 1.6 MB: a few
+// device microseconds, so what bounds it is how much of the card a call
+// keeps busy (the SIMT tile it replaces ran 6 blocks, each over the whole
+// contraction); at N = 787, B = 250 it is the traffic from L2 (H is read
+// once per column tile of E, Y once per row tile). What the design does:
+//   * blocks of four warps per 64 x 64 tile of E (each warp 32 x 32, two
+//     by four products of m16n8); products past N or B are skipped, so
+//     B = 1 (the x64 binary_cv label vector) costs one product in eight;
+//   * the contraction is split over blockIdx.z (splits:
+//     kernels/hat_apply/hat_apply.py::dmma_hat_splits) so that the few
+//     tiles of a small N or B still give over a hundred blocks; the same
+//     fixed-order second pass as f32, a programmatic dependent launch, and
+//     with one split Y − H·Y fused into the store;
+//   * chunks of 16 contraction columns by cp.async, a three-stage ring, as
+//     16-byte pieces where H's (Y's) rows are 16-byte aligned, else 8-byte
+//     pieces, so any H and Y are taken (f64 data is always 8-byte aligned);
+//   * Y's chunk is staged as it lies, (K, B) row-major, and read as the
+//     .col fragment (B[k][n] with k = 2q, 2q + 1 after the permutation);
+//     its rows are padded to 66 doubles so a half warp's 8-byte reads hit
+//     16 different bank pairs;
+//   * the tile of E goes out through shared memory, a warp to a row;
+//   * f64 products and sums need no split and no fresh accumulator.
+#include "upper_gram.cuh"        // stride_blocks
+#include "dmma.cuh"              // the f64 tensor-core primitives
+#include "upper_gram_tc.cuh"     // store16 and the sm90 primitives
 
 namespace repro {
 
@@ -250,14 +273,23 @@ hat_apply_tc_kernel(const float* __restrict__ h, const float* __restrict__ y,
 // E = Y − Σ_s partial_s, the partials summed in split order. Launched as a
 // programmatic dependent of the first pass: its blocks start early and wait
 // here until the first pass has finished and its stores are visible.
+template <typename T>
 __global__ void __launch_bounds__(kThreads)
-hat_apply_reduce_kernel(const float* __restrict__ ws, const float* __restrict__ y,
-                        float* __restrict__ e, int n, int b, int splits) {
+hat_apply_reduce_kernel(const T* __restrict__ ws, const T* __restrict__ y, T* __restrict__ e,
+                        int n, int b, int splits) {
   asm volatile("griddepcontrol.wait;\n" ::: "memory");
   const size_t total = static_cast<size_t>(n) * b;
   for (size_t idx = blockIdx.x * static_cast<size_t>(blockDim.x) + threadIdx.x; idx < total;
        idx += static_cast<size_t>(gridDim.x) * blockDim.x)
-    e[idx] = y[idx] - split_sum(ws, idx, total, splits);
+    e[idx] = y[idx] - ordered_split_sum(ws, idx, total, splits);
+}
+
+template <typename T>
+cudaError_t launch_hat_reduce(const T* ws, const T* y, T* e, int n, int b, int splits,
+                              cudaStream_t st) {
+  return launch_dependent(hat_apply_reduce_kernel<T>,
+                          dim3(stride_blocks(static_cast<size_t>(n) * b)), dim3(kThreads), st,
+                          ws, y, e, n, b, splits);
 }
 
 // ws: (splits, n, b) floats, unused with one split.
@@ -273,49 +305,170 @@ int hat_apply_tc_launch(const float* h, const float* y, float* ws, float* e, int
   hat_apply_tc_kernel<<<grid, kHatThreads, kHatSmem, st>>>(h, y, ws, e, n, b, chunk);
   err = cudaGetLastError();
   if (err != cudaSuccess || splits == 1) return static_cast<int>(err);
-  const size_t total = static_cast<size_t>(n) * b;
-  cudaLaunchConfig_t cfg = {};
-  cfg.gridDim = dim3(stride_blocks(total));
-  cfg.blockDim = dim3(kThreads);
-  cfg.stream = st;
-  cudaLaunchAttribute attr[1];
-  attr[0].id = cudaLaunchAttributeProgrammaticStreamSerialization;
-  attr[0].val.programmaticStreamSerializationAllowed = 1;
-  cfg.attrs = attr;
-  cfg.numAttrs = 1;
-  return static_cast<int>(cudaLaunchKernelEx(&cfg, hat_apply_reduce_kernel, ws, y, e, n, b,
-                                             splits));
+  return static_cast<int>(launch_hat_reduce(ws, y, e, n, b, splits, st));
 }
 
-// f64: the SIMT tile, one block per 64 x 64 tile of E over the whole
-// contraction, the subtraction fused into the store.
-__global__ void __launch_bounds__(kThreads)
-hat_apply_f64_kernel(const double* __restrict__ h, const double* __restrict__ y,
-                     double* __restrict__ e, int n, int b) {
-  const int bi = blockIdx.y, bj = blockIdx.x;
-  double acc[4][4];
-  tile_product<double, double, false>(h, n, y, b, n, b, bi * kTile, bj * kTile, 0, n, acc);
-  const int tx = threadIdx.x % 16, ty = threadIdx.x / 16;
+// ---- f64: the FP64 tensor cores ----------------------------------------------
+
+constexpr int kHatDmmaThreads = 128;   // four warps of 32 x 32
+constexpr int kHatDmmaRows = 64;       // rows of E per block
+constexpr int kHatDmmaCols = 64;       // columns of E per block
+constexpr int kHatDmmaNi = kHatDmmaCols / 16;   // n8 products a warp, per m16
+constexpr int kHatDmmaLdY = kHatDmmaCols + 2;   // doubles per staged row of Y (padding: 2)
+constexpr int kHatDmmaRing = 3;        // stages: chunks c + 1, c + 2 in flight
+// one stage: H's 64 k-major rows, then Y's 16 rows of 64 columns
+constexpr int kHatDmmaStage = kHatDmmaRows * kDmmaLd + kDmmaK * kHatDmmaLdY;
+constexpr size_t kHatDmmaSmem =
+    static_cast<size_t>(kHatDmmaRing) * kHatDmmaStage * sizeof(double);   // 62,208 bytes
+// the output tile staged for the store: rows of 72 doubles (576 bytes, 64
+// mod 128), so a quarter warp's 16-byte writes of two rows hit eight groups
+constexpr int kHatDmmaOutLd = kHatDmmaCols + 8;
+static_assert(kHatDmmaRows * kHatDmmaOutLd <= kHatDmmaRing * kHatDmmaStage,
+              "the tile must fit the stages");
+
+__global__ void __launch_bounds__(kHatDmmaThreads)
+hat_apply_dmma_kernel(const double* __restrict__ h, const double* __restrict__ y,
+                      double* __restrict__ ws, double* __restrict__ e, int n, int b, int chunk) {
+  extern __shared__ __align__(16) double hat_smem[];
+  const int m0 = blockIdx.y * kHatDmmaRows, n0 = blockIdx.x * kHatDmmaCols, s = blockIdx.z;
+  const int k_begin = s * chunk;
+  const int k_end = min(n, k_begin + chunk);
+  const int steps = k_end > k_begin ? (k_end - k_begin + kDmmaK - 1) / kDmmaK : 0;
+  const bool vec_h = n % 2 == 0 && (reinterpret_cast<uintptr_t>(h) & 15) == 0;
+  const bool vec_y = b % 2 == 0 && (reinterpret_cast<uintptr_t>(y) & 15) == 0;
+
+  const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32, g = lane / 4, q = lane % 4;
+  const int wr = 32 * (warp % 2), wc = (kHatDmmaCols / 2) * (warp / 2);   // this warp's 32 x 32
+  uint32_t live = 0;   // products (mi, ni) inside N x B
 #pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const int r = bi * kTile + ty + 16 * i;
+  for (int mi = 0; mi < 2; ++mi)
 #pragma unroll
-    for (int j = 0; j < 4; ++j) {
-      const int c = bj * kTile + tx + 16 * j;
-      if (r < n && c < b) {
-        const size_t at = static_cast<size_t>(r) * b + c;
-        e[at] = y[at] - acc[i][j];
-      }
+    for (int ni = 0; ni < kHatDmmaNi; ++ni)
+      if (m0 + wr + 16 * mi < n && n0 + wc + 8 * ni < b) live |= 1u << (kHatDmmaNi * mi + ni);
+
+  // Chunk c: H's rows m0 .. m0 + 63 at columns kc .. kc + 15 (k-major, as
+  // gram stages X), and Y's rows kc .. kc + 15 at columns n0 .. n0 + 63 as
+  // they lie; zeros past N, B and the split.
+  auto issue = [&](int c, int stage) {
+    double* sa = hat_smem + stage * kHatDmmaStage;
+    double* sy = sa + kHatDmmaRows * kDmmaLd;
+    const int kc = k_begin + c * kDmmaK;
+    dmma::stage_rows<kHatDmmaRows, kHatDmmaThreads>(sa, h, n, n, m0, kc, k_end, vec_h, tid);
+    // Y: one thread a piece of a row, rows step apart (not unrolled, as in
+    // dmma::stage_rows)
+    const int per_row = vec_y ? kHatDmmaCols / 2 : kHatDmmaCols;
+    const int step = kHatDmmaThreads / per_row;
+    const int col = (tid % per_row) * (vec_y ? 2 : 1);
+    const bool col_ok = n0 + col < b;
+    const double* from = y + static_cast<long long>(kc + tid / per_row) * b + n0 + col;
+    uint32_t to = sm90::smem_u32(sy + (tid / per_row) * kHatDmmaLdY + col);
+#pragma unroll 1
+    for (int kr = tid / per_row; kr < kDmmaK;
+         kr += step, from += static_cast<long long>(step) * b, to += step * kHatDmmaLdY * 8) {
+      const bool ok = col_ok && kc + kr < k_end;
+      if (vec_y)
+        sm90::cp_async16(to, ok ? from : y, ok ? 16 : 0);
+      else
+        dmma::cp_async8(to, ok ? from : y, ok ? 8 : 0);
     }
+  };
+
+  double acc[2][kHatDmmaNi][4];
+#pragma unroll
+  for (int mi = 0; mi < 2; ++mi)
+#pragma unroll
+    for (int ni = 0; ni < kHatDmmaNi; ++ni)
+#pragma unroll
+      for (int r = 0; r < 4; ++r) acc[mi][ni][r] = 0.0;
+
+  auto compute = [&](int stage) {
+    const double* sa = hat_smem + stage * kHatDmmaStage;
+    const double* sy = sa + kHatDmmaRows * kDmmaLd;
+#pragma unroll
+    for (int kk = 0; kk < kDmmaK / 8; ++kk) {
+      double a[2][4], bf[kHatDmmaNi][2];
+#pragma unroll
+      for (int mi = 0; mi < 2; ++mi) dmma::load_a(a[mi], sa, wr + 16 * mi, kk, g, q);
+      // B[k][n] = Y's staged row k: the permuted k = 2q, 2q + 1 of this step
+      const double* yk = sy + (8 * kk + 2 * q) * kHatDmmaLdY + wc + g;
+#pragma unroll
+      for (int ni = 0; ni < kHatDmmaNi; ++ni) {
+        bf[ni][0] = yk[8 * ni];
+        bf[ni][1] = yk[8 * ni + kHatDmmaLdY];
+      }
+#pragma unroll
+      for (int mi = 0; mi < 2; ++mi)
+#pragma unroll
+        for (int ni = 0; ni < kHatDmmaNi; ++ni)
+          if (live >> (kHatDmmaNi * mi + ni) & 1u) dmma::mma_m16n8k8(acc[mi][ni], a[mi], bf[ni]);
+    }
+  };
+
+#pragma unroll
+  for (int c = 0; c < kHatDmmaRing - 1; ++c) {
+    if (c < steps) issue(c, c);
+    sm90::cp_async_commit();
   }
+  for (int c = 0; c < steps; ++c) {
+    sm90::cp_async_wait<kHatDmmaRing - 2>();   // this thread's copies of chunk c have landed
+    __syncthreads();                           // everyone's; stage (c − 1) is free
+    const int next = c + kHatDmmaRing - 1;
+    if (next < steps) issue(next, next % kHatDmmaRing);
+    sm90::cp_async_commit();
+    compute(c % kHatDmmaRing);
+  }
+  asm volatile("griddepcontrol.launch_dependents;\n" ::: "memory");
+
+  // The tile goes out through shared memory (the stages are free now), so
+  // that rows of E are written whole: acc[mi][ni][2hh + ee] is entry
+  // (wr + 16·mi + g + 8·hh, wc + 8·ni + 2q + ee). E = Y − H·Y with one
+  // split, else this split's partial H·Y.
+  __syncthreads();
+  double* tile = hat_smem;
+#pragma unroll
+  for (int mi = 0; mi < 2; ++mi)
+#pragma unroll
+    for (int ni = 0; ni < kHatDmmaNi; ++ni)
+#pragma unroll
+      for (int hh = 0; hh < 2; ++hh)
+        *reinterpret_cast<double2*>(tile + (wr + 16 * mi + g + 8 * hh) * kHatDmmaOutLd + wc +
+                                    8 * ni + 2 * q) =
+            make_double2(acc[mi][ni][2 * hh], acc[mi][ni][2 * hh + 1]);
+  __syncthreads();
+  const bool single = gridDim.z == 1;
+  double* out = single ? e : ws + static_cast<size_t>(s) * n * b;
+  for (int i = tid; i < kHatDmmaRows * kHatDmmaCols; i += kHatDmmaThreads) {
+    const int row = m0 + i / kHatDmmaCols, col = n0 + i % kHatDmmaCols;
+    if (row >= n || col >= b) continue;
+    const size_t at = static_cast<size_t>(row) * b + col;
+    const double v = tile[(i / kHatDmmaCols) * kHatDmmaOutLd + i % kHatDmmaCols];
+    out[at] = single ? y[at] - v : v;
+  }
+}
+
+// ws: (splits, n, b) doubles, unused with one split.
+int hat_apply_dmma_launch(const double* h, const double* y, double* ws, double* e, int n, int b,
+                          int splits, cudaStream_t st) {
+  if (n <= 0 || b <= 0 || splits <= 0 || (splits > 1 && ws == nullptr))
+    return static_cast<int>(cudaErrorInvalidValue);
+  static std::atomic<uint32_t> opted{0};
+  cudaError_t err = set_smem_once(opted, hat_apply_dmma_kernel, kHatDmmaSmem);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const int chunk = ((n + splits - 1) / splits + kDmmaK - 1) / kDmmaK * kDmmaK;
+  dim3 grid((b + kHatDmmaCols - 1) / kHatDmmaCols, (n + kHatDmmaRows - 1) / kHatDmmaRows, splits);
+  hat_apply_dmma_kernel<<<grid, kHatDmmaThreads, kHatDmmaSmem, st>>>(h, y, ws, e, n, b, chunk);
+  err = cudaGetLastError();
+  if (err != cudaSuccess || splits == 1) return static_cast<int>(err);
+  return static_cast<int>(launch_hat_reduce(ws, y, e, n, b, splits, st));
 }
 
 }  // namespace repro
 
 extern "C" {
 
-// ws: (splits, n, b) f32 workspace of the split partials (null when
-// splits == 1); f64 takes splits == 1 and no workspace.
+// ws: (splits, n, b) workspace of the split partials in the data's type
+// (null when splits == 1). splits: kernels/hat_apply/hat_apply.py
+// (hat_splits for f32, dmma_hat_splits for f64).
 int hat_apply_f32(const void* h, const void* y, void* ws, void* e, int n, int b, int splits,
                   void* stream) {
   return repro::hat_apply_tc_launch(static_cast<const float*>(h), static_cast<const float*>(y),
@@ -324,12 +477,10 @@ int hat_apply_f32(const void* h, const void* y, void* ws, void* e, int n, int b,
 }
 int hat_apply_f64(const void* h, const void* y, void* ws, void* e, int n, int b, int splits,
                   void* stream) {
-  if (n <= 0 || b <= 0 || splits != 1 || ws != nullptr)
-    return static_cast<int>(cudaErrorInvalidValue);
-  dim3 grid((b + repro::kTile - 1) / repro::kTile, (n + repro::kTile - 1) / repro::kTile);
-  repro::hat_apply_f64_kernel<<<grid, repro::kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const double*>(h), static_cast<const double*>(y), static_cast<double*>(e), n, b);
-  return static_cast<int>(cudaGetLastError());
+  return repro::hat_apply_dmma_launch(static_cast<const double*>(h),
+                                      static_cast<const double*>(y), static_cast<double*>(ws),
+                                      static_cast<double*>(e), n, b, splits,
+                                      static_cast<cudaStream_t>(stream));
 }
 
 }  // extern "C"

@@ -116,6 +116,67 @@ def test_hat_apply_tensor_core_route_refuses_unaligned_data(gen):
     assert _build.LAUNCHES["hat_apply"] == before
 
 
+# The f64 routes run on the FP64 tensor cores (DMMA): within 1e-9 of the
+# plain version, G exactly symmetric, both bitwise equal across calls, at
+# every split rule's regime (one split: hat_apply's Y − H·Y written by the
+# first pass), odd P and B = 1, and on views that start at an odd f64 offset
+# (8 bytes past a 16-byte boundary: the 8-byte copies).
+def _at_offset(gen, shape, offset):
+    numel = shape[0] * shape[1]
+    flat = torch.randn(numel + offset, generator=gen, device="cuda", dtype=torch.float64)
+    return flat[offset:].view(shape)
+
+
+@pytest.mark.parametrize("offset", [0, 1])
+@pytest.mark.parametrize("n,p", [(8, 16), (130, 1037), (130, 1030), (384, 2304),
+                                 (787, 76000)])
+def test_gram_f64_tensor_core_route(gen, n, p, offset):
+    x = _at_offset(gen, (n, p), offset)
+    assert x.data_ptr() % 16 == 8 * offset
+    got = _launched("gram", lambda: gram(x))
+    assert torch.equal(got, got.T) and torch.equal(got, gram(x))
+    _close(got, gram_ref(x), TOL[torch.float64])
+
+
+@pytest.mark.parametrize("offset", [0, 1])
+@pytest.mark.parametrize("n,b", [(16, 1), (131, 70), (384, 64), (787, 1), (787, 250)])
+def test_hat_apply_f64_tensor_core_route(gen, n, b, offset):
+    h = _at_offset(gen, (n, n), offset) / n
+    y = _at_offset(gen, (n, b), offset)
+    got = _launched("hat_apply", lambda: hat_errors(h, y))
+    assert torch.equal(got, hat_errors(h, y))
+    _close(got, hat_apply_ref(h, y), TOL[torch.float64])
+
+
+@pytest.mark.parametrize("dtype,tol,offset", [(torch.float32, 1e-4, 0),
+                                              (torch.float64, 1e-9, 8)])
+def test_binary_dvals_of_a_label_row_on_the_card(gen, monkeypatch, dtype, tol, offset):
+    """A label vector that is a row of a (T, N) tensor starts N·itemsize
+    bytes into its storage (12 mod 16 in f32, 8 in f64 at N = 787): the
+    kernel route takes it and equals the CPU route. f32 labels reach
+    hat_apply as an aligned copy, f64 labels as they are (the 8-byte
+    copies). (f32: the card's and the CPU's hat matrices round
+    differently, ~1e-6 of scale.)"""
+    n = 787
+    x = torch.randn(n, 40, generator=gen, device="cuda", dtype=torch.float64).to(dtype)
+    ys = torch.where(torch.rand(3, n, generator=gen, device="cuda") < 0.5, 1.0, -1.0).to(dtype)
+    assert ys[1].data_ptr() % 16 == (n * ys.element_size()) % 16 != 0
+    plan = fastcv.prepare(x, folds.kfold(n, 10, device="cuda"), 2.0)
+    plan_cpu = fastcv.prepare(x.cpu(), folds.kfold(n, 10, device="cpu"), 2.0)
+    seen = []
+    hat_errors_ = fastcv.hat_errors
+
+    def recording(h, y):
+        seen.append(y.data_ptr() % 16)
+        return hat_errors_(h, y)
+
+    monkeypatch.setattr(fastcv, "hat_errors", recording)
+    got = _launched("hat_apply", lambda: fastcv.binary_dvals(plan, ys[1]))
+    assert seen == [offset]
+    monkeypatch.undo()
+    _close(got.cpu(), fastcv.binary_dvals(plan_cpu, ys[1].cpu()), tol)
+
+
 def _h_te(gen, k, m, dtype):
     a = torch.randn(k, m, m, generator=gen, device="cuda", dtype=dtype) / (3 * m ** 0.5)
     return -(a @ a.transpose(1, 2))

@@ -103,6 +103,32 @@ def test_cv_errors_default_route_on_cpu_is_the_composite():
     assert torch.equal(default[0], composite[0]) and torch.equal(default[1], composite[1])
 
 
+def test_kernel_route_copies_labels_that_start_unaligned(monkeypatch):
+    """A row of a (T, N) f32 label tensor at N = 787 starts 3,148 bytes into
+    its storage (12 mod 16). hat_apply's f32 kernel copies Y in aligned
+    16-byte pieces, so the kernel route hands hat_errors a fresh copy; the
+    errors equal the composite route's."""
+    n, t = 787, 3
+    rng = np.random.default_rng(11)
+    x = rng.normal(size=(n, 40)).astype(np.float32)
+    ys = torch.tensor(np.where(rng.random((t, n)) < 0.5, 1.0, -1.0).astype(np.float32))
+    plan = fastcv.prepare(torch.tensor(x), folds.kfold(n, 10, device="cpu"), 2.0)
+    assert ys[1].data_ptr() % 16 == (n * 4) % 16 == 12
+    seen = []
+    hat_errors = fastcv.hat_errors
+
+    def recording(h, y):
+        seen.append(y.data_ptr() % 16)
+        return hat_errors(h, y)
+
+    monkeypatch.setattr(fastcv, "hat_errors", recording)
+    got = fastcv.cv_errors(plan, ys[1], fused=True)
+    want = fastcv.cv_errors(plan, ys[1], fused=False)
+    assert seen == [0]
+    _close(got[0], want[0], 1e-5)   # the f32 kernels' pin; measured ~1e-6
+    _close(got[1], want[1], 1e-5)
+
+
 @pytest.mark.parametrize("adjust_bias", [True, False])
 @pytest.mark.parametrize("fused", [False, True])
 def test_binary_dvals_match_reference(adjust_bias, fused):

@@ -29,9 +29,10 @@ from repro_torch.kernels.flash_attention.ref import attention_ref
 from repro_torch.kernels.fold_eval.ops import fold_eval
 from repro_torch.kernels.foldsolve.foldsolve import SMEM_BYTES, aug_in_shared, block_cols
 from repro_torch.kernels.foldsolve.ops import fold_jitter, fold_residual_bad, foldsolve
-from repro_torch.kernels.gram.gram import gram_splits
+from repro_torch.kernels.gram.gram import dmma_gram_splits, gram_splits
 from repro_torch.kernels.gram.ops import (PRECISIONS, centered_gram, centered_gram_plain,
                                           check_precision, gram)
+from repro_torch.kernels.hat_apply.hat_apply import dmma_hat_splits
 from repro_torch.kernels.hat_apply.ops import hat_errors
 from repro_torch.kernels.pairdist import pairdist as pairdist_launch
 from repro_torch.kernels.pairdist.ops import pairwise_sq_dists
@@ -106,6 +107,34 @@ def test_gram_splits_fill_the_card():
     assert gram_splits(787, 1500, 132) == 2
     assert gram_splits(8, 16, 132) == 1
     assert gram_splits(4096, 76000, 132) == 1
+
+
+# The f64 routes (FP64 tensor cores): gram fills whole waves of one 128-row
+# block per SM, hat_apply up to three 64 x 64 blocks per SM; both split the
+# contraction into whole chunks of 16 columns.
+@pytest.mark.parametrize("n,p,splits,blocks", [
+    (787, 76000, 14, 392),   # main size: 28 upper tiles, 3 waves of 132
+    (384, 2304, 21, 126),    # lm_probe: 6 upper tiles, one wave (22 asked)
+    (130, 1037, 17, 51),     # ragged: splits of at least 64 columns
+    (8, 16, 1, 1),           # one split: one partial, then the reduce
+    (4096, 76000, 1, 528),
+])
+def test_dmma_gram_splits_fill_the_card(n, p, splits, blocks):
+    got = dmma_gram_splits(n, p, 132)
+    tiles = cdiv(n, 128)
+    assert got == splits and got * tiles * (tiles + 1) // 2 == blocks
+
+
+@pytest.mark.parametrize("n,b,splits,blocks", [
+    (787, 250, 7, 364),      # main size, a permutation chunk
+    (384, 64, 24, 144),      # lm_probe's label chunk
+    (787, 1, 25, 325),       # the x64 binary_cv label vector (30 asked)
+    (16, 1, 1, 1),           # one split: Y − H·Y fused into the store
+    (131, 70, 9, 54),
+])
+def test_dmma_hat_splits_fill_the_card(n, b, splits, blocks):
+    got = dmma_hat_splits(n, b, 132)
+    assert got == splits and got * cdiv(n, 64) * cdiv(b, 64) == blocks
 
 
 # ----------------------------------------------------------- hat_apply ----
