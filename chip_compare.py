@@ -1,4 +1,5 @@
-"""Time gram and hat_apply of two checkouts on one NVIDIA GPU, in turns.
+"""Time gram, hat_apply, foldsolve and fold_eval of two checkouts on one
+NVIDIA GPU, in turns.
 
 Run from the repository root, with another checkout unpacked beside it
 (for example a parent commit: ``git archive <commit> | tar -x -C
@@ -12,7 +13,13 @@ inputs made from a seed: gram at the main path's X (787, 76,000) in f32
 and f64 and at the lm_probe path's X (384, 2,304) in f64; hat_apply at
 H (787, 787), Y (787, 250) in f32 and f64 and at the lm_probe path's
 H (384, 384), Y (384, 64) in f64; each beside ``torch.mm`` or
-``torch.addmm`` in the same dtype (f32 at full f32, no TF32). Each row
+``torch.addmm`` in the same dtype (f32 at full f32, no TF32); foldsolve at
+the main path's h_te (10, 78, 78), E (10, 78, 250) in f32 and the
+lm_probe path's (6, 64, 64), (6, 64, 64) in f64, and fold_eval at the
+main path's h_rows (10, 78, 787), y (787, 1) in f32 and at (6, 64, 384),
+(384, 64) in f64, each with jitter=None and as the paths call them
+(jitter="auto", the residual check and retry), beside batched
+``torch.linalg.solve`` (after a ``bmm`` for fold_eval). Each row
 is the CUDA-event time of the Python call (median of 20 after 3
 warm-ups, host launch path included), its device-busy time
 (torch.profiler), as ``chip_smoke.py`` times the ``kernels`` line, and
@@ -56,6 +63,8 @@ def side(src: str) -> dict:
 
     import chip_smoke as cs   # timing helpers only; puts ROOT/src on the path
     sys.path.insert(0, str(Path(src).resolve() / "src"))
+    from repro_torch.kernels.fold_eval.ops import fold_eval
+    from repro_torch.kernels.foldsolve.ops import foldsolve
     from repro_torch.kernels.gram.ops import gram
     from repro_torch.kernels.hat_apply.ops import hat_errors
     import repro_torch
@@ -83,6 +92,30 @@ def side(src: str) -> dict:
             out[row] = {"ms": cs.cuda_ms(fn), "device_ms": cs.device_ms(fn),
                         "kernel_us": kernel_us(fn)}
         del xc, h, y
+    for dt, k, m, b, n, bf in ((torch.float32, 10, 78, 250, 787, 1),
+                               (torch.float64, 6, 64, 64, 384, 64)):
+        a = torch.randn(k, m, m, generator=gen, device="cuda", dtype=dt) / (3 * m ** 0.5)
+        h_te = -(a @ a.transpose(1, 2))         # I − H_Te SPD
+        e = torch.randn(k, m, b, generator=gen, device="cuda", dtype=dt)
+        h_rows = torch.randn(k, m, n, generator=gen, device="cuda", dtype=dt) / n
+        y = torch.randn(n, bf, generator=gen, device="cuda", dtype=dt)
+        y_te = torch.randn(k, m, bf, generator=gen, device="cuda", dtype=dt)
+        eye = torch.eye(m, device="cuda", dtype=dt).expand(k, m, m)
+        name = str(dt).removeprefix("torch.")
+        fs, fe = f"({k}, {m}, {m})x{b}", f"({k}, {m}, {n})x({n}, {bf})"
+        for row, fn in ((f"foldsolve jitter=None {name} {fs}",
+                         lambda: foldsolve(h_te, e, jitter=None)),
+                        (f"foldsolve jitter=auto {name} {fs}", lambda: foldsolve(h_te, e)),
+                        (f"linalg.solve {name} {fs}", lambda: torch.linalg.solve(eye - h_te, e)),
+                        (f"fold_eval jitter=None {name} {fe}",
+                         lambda: fold_eval(h_rows, h_te, y, y_te, jitter=None)),
+                        (f"fold_eval jitter=auto {name} {fe}",
+                         lambda: fold_eval(h_rows, h_te, y, y_te)),
+                        (f"bmm + linalg.solve {name} {fe}",
+                         lambda: torch.linalg.solve(eye - h_te, y_te - torch.bmm(
+                             h_rows, y.expand(k, n, bf))))):
+            out[row] = {"ms": cs.cuda_ms(fn), "device_ms": cs.device_ms(fn),
+                        "kernel_us": kernel_us(fn)}
     return out
 
 

@@ -38,10 +38,15 @@ random weights from a seed):
 
 Each path's launch counts are reset before it and read after it; every
 kernel the path should run must have launched (flash_attention exactly
-once per layer in each prefill and forward, never in decode). Every kernel
+once per layer in each prefill and forward, never in decode), and each
+call of foldsolve and fold_eval must be one launch, its residual check and
+jitter retry inside (on lm_probe, one foldsolve launch per hat_apply
+launch). Every kernel
 is held against its plain PyTorch version on the card (at each path's own
 shapes and column blocks, at ragged shapes, at f64, bf16, m = 1 and m = 393
-folds, a near-singular fold that forces the jitter retry, a trial-level RDM
+folds, a near-singular fold that forces the jitter retry, the one-launch
+checked foldsolve and fold_eval against the plain checked solve with a
+fold that fails only past its first column tile, a trial-level RDM
 of 787 patterns, and flash_attention at the LM paths' shapes and strided
 layout, at head widths 128 and 64, a ragged length and f32 I/O), and the results are
 checked: against the Cholesky composite and against f64 composite runs
@@ -50,8 +55,10 @@ contrast and confusion RDMs, a probe point's decision values), against
 retraining per fold (binary at P = 3,800, multi-class at P = 1,900), and
 the LM's logits against the plain-attention model and its own forward.
 
-flash_attention's bf16 route, gram's f32 and bf16 routes and hat_apply's
-f32 route must run on the tensor cores: the build phase counts the HGMMA
+foldsolve's and fold_eval's instantiations must not spill (ptxas's report
+in the build phase). flash_attention's bf16 route, gram's f32 and bf16
+routes and hat_apply's f32 route must run on the tensor cores: the build
+phase counts the HGMMA
 instructions in each built library's SASS (cuobjdump; TF32 ones in libgram
 and libhat_apply, BF16 ones in libgram) and reads ptxas's report of those
 instantiations, and the run fails on no HGMMA or any spill. Their f64
@@ -63,7 +70,10 @@ and repeatable at the main and a ragged shape); hat_apply bitwise
 repeatable (f64 too, and at the x64 label vector's B = 1). The `kernels`
 line times flash at the LM paths' shapes (tensor-core route) and at an
 f32 I/O shape (SIMT route), gram and hat_apply at the main path's shapes
-in f32 and f64 and at the probe path's (f64) shapes, and gram's bf16_gram
+in f32 and f64 and at the probe path's (f64) shapes, foldsolve and
+fold_eval there both without the check (jitter=None, the row) and as the
+paths call them (on_path_ms, jitter="auto"), foldsolve's checked launch by
+tile width (tile_widths), and gram's bf16_gram
 build (beside torch.mm with out_dtype=float32 where torch has it), with TFLOP/s on
 the counted and on the issued operations for the tensor-core routes, and
 every row's device-busy time (torch.profiler) beside its CUDA-event time,
@@ -238,10 +248,62 @@ def bound(nbytes: float, flops: float, dtype) -> tuple:
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
+#: Calls of foldsolve and fold_eval since the last reset_counts(), counted
+#: where the paths make them (core.fastcv.cv_errors_fused is their only caller).
+FOLD_CALLS = {"foldsolve": 0, "fold_eval": 0}
+
+
+def count_fold_calls() -> None:
+    """Count every call of fastcv's foldsolve and fold_eval in FOLD_CALLS."""
+    from repro_torch.core import fastcv
+
+    for name in FOLD_CALLS:
+        def counted(*args, _fn=getattr(fastcv, name), _name=name, **kwargs):
+            FOLD_CALLS[_name] += 1
+            return _fn(*args, **kwargs)
+        setattr(fastcv, name, counted)
+
+
+def reset_counts() -> None:
+    from repro_torch.kernels import _build
+    _build.reset_launches()
+    for name in FOLD_CALLS:
+        FOLD_CALLS[name] = 0
+
+
+def counts() -> dict:
+    """Launches per kernel since reset_counts(), and under "calls" the fold
+    kernels' calls."""
+    from repro_torch.kernels import _build
+    return {**_build.LAUNCHES, "calls": dict(FOLD_CALLS)}
+
+
 def expect_launches(path: str, launches: dict, names) -> None:
+    """Every kernel in ``names`` launched, and each call of foldsolve and
+    fold_eval one launch (its check and retry inside)."""
     missing = [k for k in names if launches.get(k, 0) <= 0]
     if missing:
         fail(f"kernels not launched on the {path} path: {missing}")
+    off = {k: [launches[k], n] for k, n in launches["calls"].items() if launches[k] != n}
+    if off:
+        fail(f"the {path} path made other than one launch per call ([launches, calls]): {off}")
+
+
+def near_singular_folds(gen, k: int, m: int, b: int, dtype) -> tuple:
+    """(h_te, e): k folds with I − H_Te SPD, fold 1 near-singular
+    (Q·diag(1, …, d)·Qᵀ, d = 1e-14 in f64 and 0 before the f32 rounding) with
+    its first 64 right-hand sides off the near-null direction, so that in f64
+    only its later column tiles fail the residual check."""
+    a = torch.randn(k, m, m, generator=gen, device="cuda", dtype=dtype) / (3 * m ** 0.5)
+    h = -(a @ a.transpose(1, 2))
+    q, _ = torch.linalg.qr(torch.randn(m, m, generator=gen, device="cuda", dtype=torch.float64))
+    d = torch.ones(m, device="cuda", dtype=torch.float64)
+    d[-1] = 1e-14 if dtype == torch.float64 else 0.0
+    h[1] = (torch.eye(m, device="cuda", dtype=torch.float64) - (q * d) @ q.T).to(dtype)
+    e = torch.randn(k, m, b, generator=gen, device="cuda", dtype=torch.float64)
+    null = q[:, -1]
+    e[1, :, :64] -= torch.outer(null, null @ e[1, :, :64])
+    return h, e.to(dtype)
 
 
 def lam_rule(x: torch.Tensor) -> float:
@@ -413,9 +475,9 @@ def lm_serve_phase(dev):
     long_prompt = torch.randint(0, cfg.vocab_size, (1, LM_LONG), generator=gen, device=dev)
 
     # 1. the serving path: prefill, then 64 greedy decode steps
-    _build.reset_launches()
+    reset_counts()
     (ids, st), t_serve = timed(lambda: serve.generate(model, prompts, LM_DECODE + 1, cfg))
-    launches = dict(_build.LAUNCHES)
+    launches = counts()
     idle = decode_idle_share(model, prompts, cfg)
     # 2. an 8,192-token prefill: the local layers mask by window and skip tiles
     torch.cuda.reset_peak_memory_stats()
@@ -533,11 +595,11 @@ def lm_probe_phase(model, cfg, dev):
     tokens, y = probe.band_tokens(cfg, PROBE_PER_CLASS, PROBE_SEQ, gen)
     n = tokens.shape[0]
     folds = folds_mod.kfold(n, PROBE_FOLDS, seed=SEED, device=dev)
-    _build.reset_launches()
+    reset_counts()
     feats, t_feats = timed(lambda: probe.layerwise_hidden_states(model, tokens, cfg))
     lams = [lam_rule(f.double()) for f in feats]
     results, t_probe = timed(lambda: probe.probe_points(feats, y, folds, lams, N_PERM))
-    launches = dict(_build.LAUNCHES)
+    launches = counts()
     # point 0 on the kernel route against the f64 composite route
     plan = fastcv.prepare(feats[0].double(), folds, lams[0])
     dv_k = fastcv.binary_dvals(plan, y, fused=True)
@@ -564,6 +626,9 @@ def lm_probe_phase(model, cfg, dev):
         fail(f"probe forward launched flash_attention {launches['flash_attention']} times, "
              f"want {cfg.num_layers}")
     expect_launches("probe", launches, ("gram", "hat_apply", "foldsolve"))
+    if launches["foldsolve"] != launches["hat_apply"]:
+        fail(f"probe: {launches['foldsolve']} foldsolve launches for "
+             f"{launches['hat_apply']} hat_apply launches, want one each per permutation chunk")
     if e_dv > TOL[torch.float64] * s_dv:
         fail("probe decision values disagree with the f64 composite route")
     return launches
@@ -576,11 +641,13 @@ def main() -> None:
     from repro_torch.core import multiclass, permutation, regression
     from repro_torch.data import eeg
     from repro_torch.kernels import _build
+    from repro_torch.kernels.fold_eval.fold_eval import fold_eval_cuda
     from repro_torch.kernels.fold_eval.ops import fold_eval
-    from repro_torch.kernels.fold_eval.ref import fold_eval_ref
+    from repro_torch.kernels.fold_eval.ref import fold_eval_checked_ref, fold_eval_ref
+    from repro_torch.kernels.foldsolve.foldsolve import foldsolve_cuda
     from repro_torch.kernels.foldsolve.ops import (fold_jitter,
                                                    fold_residual_bad, foldsolve)
-    from repro_torch.kernels.foldsolve.ref import foldsolve_ref
+    from repro_torch.kernels.foldsolve.ref import foldsolve_checked_ref, foldsolve_ref
     from repro_torch.kernels.gram.gram import gram_cuda
     from repro_torch.kernels.gram.ops import centered_gram_plain, gram
     from repro_torch.kernels.gram.ref import gram_ref
@@ -598,6 +665,7 @@ def main() -> None:
     torch.backends.cudnn.allow_tf32 = False
     dev = torch.device("cuda")
     smi = nvidia_smi()
+    count_fold_calls()
 
     # -- 1. environment ------------------------------------------------------
     # the library yardsticks (torch.mm, addmm) must run full f32 cuBLAS, not TF32
@@ -647,9 +715,19 @@ def main() -> None:
             "dmma": sum(len(re.findall(r"\bDMMA\b", body))
                         for fn, body in sass_functions(sass).items() if dmma_kernel in fn),
             "ptxas": {k: v for k, v in report.items() if dmma_kernel in k}}
+    # foldsolve and fold_eval: f32 and f64, each on the register route and on
+    # the shared/global-memory route; none may spill
+    fold_ptxas = {name: {k: v for k, v in ptxas_report(
+        paths[name].with_suffix(".log").read_text()).items() if f"{name}_kernel" in k}
+        for name in ("foldsolve", "fold_eval")}
     emit({"phase": "build", "seconds": build_s, "hash": _build.source_hash(),
           "ptxas": ptxas, "flash_hgmma": hgmma, "flash_tensor_core_ptxas": flash_tc,
-          "tensor_core_routes": tc_libs, "fp64_tensor_core_routes": dmma_libs})
+          "tensor_core_routes": tc_libs, "fp64_tensor_core_routes": dmma_libs,
+          "fold_kernels_ptxas": fold_ptxas})
+    for name, report in fold_ptxas.items():
+        if len(report) != 4 or any(v.get("spill_bytes", 1) for v in report.values()):
+            fail(f"{name}'s instantiations: want 4 (f32/f64 × register/memory route) with 0 "
+                 f"spill bytes, ptxas says {report}")
     if hgmma == 0:
         fail("libflash_attention.so holds no HGMMA instruction: the bf16 route is not on the "
              "tensor cores")
@@ -681,12 +759,12 @@ def main() -> None:
     folds = folds_mod.kfold(n, K, seed=SEED, device=dev)
     lam = lam_rule(x)
 
-    _build.reset_launches()
+    reset_counts()
     (dvals, y_te), t_cv = timed(lambda: fastcv.binary_cv(x, y, folds, lam))
     (preds, r_te), t_ridge = timed(lambda: regression.analytical_cv(x, y, folds, lam))
     perm, t_perm = timed(lambda: permutation.analytical_permutation_binary(
         x, y, folds, lam, N_PERM, SEED, chunk=CHUNK))
-    launches = dict(_build.LAUNCHES)
+    launches = counts()
     acc = float(metrics.binary_accuracy(dvals, y_te))
     auc = float(metrics.auc(dvals, y_te))
     emit({"phase": "main", "N": n, "P": p, "K": K, "m": folds.test_size, "dtype": "float32",
@@ -722,6 +800,9 @@ def main() -> None:
     e_small = hat_errors(plan_small.h, y)[plan_small.te_idx][..., None]
     raw_small = foldsolve(h_te_small, e_small, jitter=None)
     bad_small = int(fold_residual_bad(h_te_small, raw_small, e_small).sum())
+    # the one launch (check and retry inside) against the plain checked route
+    one_small, flags_small = foldsolve_cuda(h_te_small, e_small, check=True)
+    e_one, s_one = rel_err(one_small, foldsolve_checked_ref(h_te_small, e_small))
     dv_small = fastcv.binary_dvals(plan_small, y, fused=True)
     emit({"phase": "main_checks",
           "dvals_vs_composite": {"max_abs_err": e_comp, "scale": s_comp, "tol": TOL_DVALS_F32},
@@ -730,6 +811,9 @@ def main() -> None:
                                    "tol": TOL[torch.float64]},
           "accuracy_f64": float(metrics.binary_accuracy(dv64, y_te.double())),
           "small_lam": {"lam": lam_small, "bad_folds_before_retry": bad_small,
+                        "kernel_resolved_folds": int(flags_small.sum()),
+                        "one_launch_vs_plain_checked": {"max_abs_err": e_one, "scale": s_one,
+                                                        "tol": TOL[torch.float32]},
                         "finite_after_retry": bool(torch.isfinite(dv_small).all())}})
     if e_comp > TOL_DVALS_F32 * s_comp or e_f64 > TOL_DVALS_F32 * s_f64:
         fail("f32 decision values disagree with the composite or the f64 run")
@@ -737,6 +821,8 @@ def main() -> None:
         fail("f64 kernel route disagrees with the f64 composite")
     if not bool(torch.isfinite(dv_small).all()):
         fail("small-λ decision values are not finite after the jitter retry")
+    if e_one > TOL[torch.float32] * s_one or not bool(torch.isfinite(one_small).all()):
+        fail("small-λ: the one-launch checked foldsolve disagrees with the plain checked route")
 
     # analytical CV == retraining per fold, at the paper's P = 3,800 (f64)
     x38 = eeg.windowed_features(ds, 100.0).double()
@@ -770,12 +856,12 @@ def main() -> None:
     x3, y3 = eeg.windowed_features(ds3, 5.0), ds3.y               # (787, 76000) f32
     folds3 = folds_mod.kfold(n, K, seed=SEED, device=dev)
     lam3 = lam_rule(x3)
-    _build.reset_launches()
+    reset_counts()
     (pred3, y3_te), t_mc = timed(lambda: multiclass.analytical_cv_multiclass(
         x3, y3, folds3, MC_CLASSES, lam3))
     perm3, t_mperm = timed(lambda: permutation.analytical_permutation_multiclass(
         x3, y3, folds3, MC_CLASSES, lam3, N_PERM, SEED, chunk=MC_CHUNK))
-    launches_mc = dict(_build.LAUNCHES)
+    launches_mc = counts()
     expect_launches("multi-class", launches_mc, ("gram", "hat_apply", "foldsolve"))
     # the distances behind the predictions, on the kernel route (f32) and on
     # the f64 composite route; near-ties of the argmin may fall either way
@@ -863,9 +949,9 @@ def main() -> None:
         null8 = rsa_compare.permutation_null(emp, models, perms8, "spearman")
         return plan8, rdms, means, scores, null8
 
-    _build.reset_launches()
+    reset_counts()
     (plan8, rdms, means8, scores8, null8), t_rsa = timed(rsa_path)
-    launches_rsa = dict(_build.LAUNCHES)
+    launches_rsa = counts()
     expect_launches("RSA", launches_rsa,
                     ("gram", "hat_apply", "foldsolve", "fold_eval", "pairdist"))
     p8 = [float(permutation.p_value(scores8[i], null8[i])) for i in range(len(scores8))]
@@ -1087,6 +1173,32 @@ def main() -> None:
           fold_eval(hr_rows, hs, yr40, yr_te), want_fe, 1e-8)
     if not bool(bad.all()):
         fail("near-singular case did not trip the residual check (vacuous)")
+    # the one-launch check and retry at the main shape: fold 1 near-singular,
+    # failing (in f64) only past its first 64-column tile; the kernel's flags
+    # name it alone, it is re-solved whole, and the healthy folds keep the
+    # raw solve bit for bit; fold_eval on the same folds (ê = these columns)
+    for dt in (f32, f64):
+        hm, em = near_singular_folds(gen, K, folds.test_size, CHUNK, dt)
+        want_flags = [i == 1 for i in range(K)]
+        raw = foldsolve(hm, em, jitter=None)
+        got, flags = foldsolve_cuda(hm, em, check=True)
+        check("foldsolve", f"checked: fold 1 near-singular, K={K} m={folds.test_size} "
+              f"B={CHUNK} {dt}", got, foldsolve_checked_ref(hm, em), TOL[dt])
+        hrm = torch.randn(K, folds.test_size, n, generator=gen, device=dev, dtype=dt) / n
+        ym = torch.randn(n, CHUNK, generator=gen, device=dev, dtype=dt)
+        ytm = (em + hrm @ ym).contiguous()
+        raw_fe = fold_eval_cuda(hrm, hm, ym, ytm, check=False)[0]
+        got_fe, _, flags_fe = fold_eval_cuda(hrm, hm, ym, ytm, check=True)
+        check("fold_eval", f"checked: fold 1 near-singular, K={K} m={folds.test_size} N={n} "
+              f"B={CHUNK} {dt}", got_fe, fold_eval_checked_ref(hrm, hm, ym, ytm), TOL[dt])
+        for row, g, r, fl in ((checks[-2], got, raw, flags), (checks[-1], got_fe, raw_fe,
+                                                              flags_fe)):
+            healthy = ~fl
+            row.update(bad_folds=fl.nonzero().flatten().tolist(),
+                       healthy_equal_raw=torch.equal(g[healthy], r[healthy]),
+                       resolved_whole=not torch.equal(g[1, :, :64], r[1, :, :64]))
+            row["ok"] = (row["ok"] and fl.tolist() == want_flags and row["healthy_equal_raw"]
+                         and row["resolved_whole"])
     # the multi-class and RSA paths' own plans and column blocks: the CV's
     # (N, 3) indicators, a permutation chunk's (N, 64·3) and the last
     # chunk's (N, 40·3); the 28 contrast columns and the confusion RDM's
@@ -1217,6 +1329,7 @@ def main() -> None:
         {"name": "foldsolve", "source": "src/repro_torch/csrc/foldsolve.cu",
          "replaces": "src/repro/kernels/foldsolve/foldsolve.py:71",
          "kernel": lambda: foldsolve(h_te, e_te, jitter=None),
+         "on_path": lambda: foldsolve(h_te, e_te),
          "plain": lambda: foldsolve_ref(h_te, e_te),
          "library": lambda: torch.linalg.solve(eye_b - h_te, e_te),
          "bytes": (kk_ * m_ * m_ + 2 * kk_ * m_ * b_) * f4,
@@ -1225,6 +1338,7 @@ def main() -> None:
         {"name": "fold_eval", "source": "src/repro_torch/csrc/fold_eval.cu",
          "replaces": "src/repro/kernels/fold_eval/fold_eval.py:59",
          "kernel": lambda: fold_eval(h_rows, h_te, y1, y1_te, jitter=None),
+         "on_path": lambda: fold_eval(h_rows, h_te, y1, y1_te),
          "plain": lambda: fold_eval_ref(h_rows, h_te, y1, y1_te),
          "library": lambda: torch.linalg.solve(eye_b - h_te, y1_te - torch.bmm(
              h_rows, y1.expand(kk_, n, 1))),
@@ -1261,6 +1375,7 @@ def main() -> None:
                       "bytes": (nq * nq + 2 * nq * bq) * f8, "flops": 2 * nq * nq * bq,
                       "dtype": f64, "shape": f"lm_probe: H ({nq}, {nq}), Y ({nq}, {bq}) f64"},
         "foldsolve": {"kernel": lambda: foldsolve(hq_te, eq_te, jitter=None),
+                      "on_path": lambda: foldsolve(hq_te, eq_te),
                       "plain": lambda: foldsolve_ref(hq_te, eq_te),
                       "library": lambda: torch.linalg.solve(eye_q - hq_te, eq_te),
                       "bytes": (kq * mq * mq + 2 * kq * mq * bq) * f8,
@@ -1292,6 +1407,9 @@ def main() -> None:
                "plain_ms": cuda_ms(r["plain"]), "bound_ms": b_ms, "bound_by": b_by,
                "library_ms": cuda_ms(lib) if lib else None,
                "library_device_ms": device_ms(lib) if lib else None, "shape": r["shape"]}
+        if "on_path" in r:  # the call the paths make: jitter="auto", check and retry inside
+            out["on_path_ms"] = cuda_ms(r["on_path"])
+            out["on_path_device_ms"] = device_ms(r["on_path"])
         if "issued" in r:   # the tensor-core routes: TFLOP/s counted and issued
             out["tflops_counted"] = r["flops"] / k_ms / 1e9
             out["tflops_issued"] = r["issued"] / k_ms / 1e9
@@ -1313,6 +1431,15 @@ def main() -> None:
         if r["name"] in main64_rows:
             entry["shapes"].append({**timing(main64_rows[r["name"]]),
                                     "max_abs_err": main64_err[r["name"]], "tol": TOL[f64]})
+        if r["name"] == "foldsolve":   # the checked launch by tile width, B in one block last
+            entry["tile_widths"] = [
+                {"shape": shape, "bb": bb, "blocks": K_ * min(-(-b_w // bb), 8),
+                 "ms": cuda_ms(fn), "device_ms": device_ms(fn)}
+                for shape, K_, b_w, hh, ee in (("main f32", kk_, b_, h_te, e_te),
+                                               ("lm_probe f64", kq, bq, hq_te, eq_te))
+                for bb in sorted({16, 32, 64, b_w})
+                for fn in (lambda hh=hh, ee=ee, bb=bb: foldsolve_cuda(hh, ee, check=True,
+                                                                      block=bb),)]
         if r["name"] == "gram":   # the bf16_gram build: bf16 products, f32 out
             bf16_lib, bf16_note = bf16_mm_f32(xb_main)
             entry["shapes"].append({**timing({

@@ -244,8 +244,8 @@ def cv_errors_fused(plan: CVPlan, y: torch.Tensor):
     train blocks (bias adjust) need Ê on every training row for Eq. (15),
     so Ê = Y − H·Y comes from the ``hat_apply`` kernel and the fold solves
     from the ``foldsolve`` kernel. Both solve I − H_Te directly
-    (Gauss–Jordan with the residual-checked jitter retry) rather than use
-    the plan's Cholesky factors.
+    (Gauss–Jordan) rather than use the plan's Cholesky factors, and each
+    is one launch with its residual-checked jitter retry inside.
     """
     squeeze = y.ndim == 1
     y = (y[:, None] if squeeze else y).contiguous()

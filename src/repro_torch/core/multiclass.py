@@ -191,8 +191,9 @@ def _batch_distances(plan: fastcv.CVPlan, y_batch: torch.Tensor, num_classes: in
     """Algorithm 2 up to the centroid distances for a (B, N) label batch.
 
     Step 1 is one (N, B·C) column block through ``fastcv.cv_errors`` — one
-    ``hat_apply`` and one ``foldsolve`` (plus its retry launch) on the
-    kernel route — and step 2 one batched C×C ``eigh`` over (B, K).
+    ``hat_apply`` and one ``foldsolve`` launch (its residual check and
+    retry inside) on the kernel route — and step 2 one batched C×C
+    ``eigh`` over (B, K).
     Returns d2 (B, K, m, C) and α² (B, K, C-1).
     """
     dtype = plan.h.dtype

@@ -5,8 +5,9 @@ permutation σ only needs ê = yσ − H yσ and the per-fold solves. Permutatio
 are evaluated in chunks of ``chunk`` label vectors, so T can be large
 without exhausting memory. On CUDA a binary chunk is one ``hat_apply`` and
 one ``foldsolve`` launch (bias adjust) or one ``fold_eval`` launch
-(without); a multi-class chunk flattens its permutations' indicator
-columns into one (N, chunk·C) block, so it too is one ``hat_apply`` and one
+(without), each fold-solve launch with its residual check and jitter retry
+inside; a multi-class chunk flattens its permutations' indicator columns
+into one (N, chunk·C) block, so it too is one ``hat_apply`` and one
 ``foldsolve``, followed by one batched C×C ``eigh`` over (chunk, K).
 
 The standard-approach baselines (retrain K models per permutation) are

@@ -49,12 +49,11 @@ ARGTYPES = {
     "gram": {f"gram_{t}": (_P, _P, _P, _I, _I, _I, _P) for t in ("f32", "f64", "bf16")},
     # (h, y, ws, e, n, b, splits, stream)
     "hat_apply": {f"hat_apply_{t}": (_P, _P, _P, _P, _I, _I, _I, _P) for t in ("f32", "f64")},
-    # (h_te, e, shift, bad, out, scratch, k, m, b, bb, stream)
-    "foldsolve": {f"foldsolve_{t}": (_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P)
+    # (h_te, e, out, bad, scratch, k, m, b, bb, stream)
+    "foldsolve": {f"foldsolve_{t}": (_P, _P, _P, _P, _P, _I, _I, _I, _I, _P)
                   for t in ("f32", "f64")},
-    # (h_rows, h_te, y, y_te, t, e, scratch, k, m, n, b, bb, stream)
-    "fold_eval": {f"fold_eval_{t}": (_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P)
-                  for t in ("f32", "f64")},
+    # (h_rows, h_te, y, y_te, t, e, bad, scratch, k, m, n, b, bb, stream)
+    "fold_eval": {f"fold_eval_{t}": (_P,) * 8 + (_I,) * 5 + (_P,) for t in ("f32", "f64")},
     # (u, ws, d, c, p, splits, stream)
     "pairdist": {f"pairdist_{t}": (_P, _P, _P, _I, _I, _I, _P) for t in ("f32", "f64", "bf16")},
     # (q, k, v, o, b, hq, hkv, s, d, 12 strides, scale, softcap, causal, window, stream)

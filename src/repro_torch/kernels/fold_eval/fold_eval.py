@@ -1,10 +1,13 @@
 """CUDA launch of the fused fold_eval kernel (``csrc/fold_eval.cu``).
 
-The Hopper counterpart of ``fold_eval_pallas``: per (fold, tile of Y's
-columns) one block accumulates H[te_k, :]·Y, forms ê_Te = y_Te − H·Y in
-place and solves (I − H_Te) ė = ê with the shared Gauss–Jordan body, so
-ê is written only as a second output (for the jitter retry). Shared- or
-global-memory placement of the augmented block follows foldsolve's rule.
+The Hopper counterpart of ``fold_eval_pallas`` and its wrapper's retry: one
+thread block cluster per fold, whose blocks take tiles of ``bb`` columns
+of Y. Each block contracts H[te_k, :]·Y_tile through shared memory, forms
+ê_Te = y_Te − H·Y and solves (I − H_Te) ė = ê with foldsolve's core; with
+``check`` the same launch checks each fold's residual and re-solves a
+failing fold against the ê it wrote (the contraction is not repeated).
+Register, shared or global placement of the augmented block follows
+foldsolve's rule.
 """
 
 from __future__ import annotations
@@ -19,8 +22,9 @@ _SYMBOLS = {torch.float32: "fold_eval_f32", torch.float64: "fold_eval_f64"}
 
 
 def fold_eval_cuda(h_rows: torch.Tensor, h_te: torch.Tensor, y: torch.Tensor,
-                   y_te: torch.Tensor):
-    """(ė_Te, ê_Te) for h_rows (K, m, N), h_te (K, m, m), y (N, B), y_te (K, m, B)."""
+                   y_te: torch.Tensor, *, check: bool):
+    """(ė_Te, ê_Te, bad) for h_rows (K, m, N), h_te (K, m, m), y (N, B),
+    y_te (K, m, B), in one launch; bad as in ``foldsolve_cuda``."""
     require_cuda("fold_eval", h_rows, h_te, y, y_te)
     k, m, n = h_rows.shape
     b = y.shape[1]
@@ -33,8 +37,9 @@ def fold_eval_cuda(h_rows: torch.Tensor, h_te: torch.Tensor, y: torch.Tensor,
         raise TypeError(f"fold_eval: inputs must share one dtype of {list(_SYMBOLS)}")
     t = torch.empty_like(y_te)
     e = torch.empty_like(y_te)
+    bad = torch.empty(k, dtype=torch.bool, device=y_te.device) if check else None
     bb = block_cols(b)
     scratch = aug_scratch(k, m, b, bb, y_te)
     _build.launch("fold_eval", _SYMBOLS[dtype], h_rows.device,
-                  h_rows, h_te, y, y_te, t, e, scratch, k, m, n, b, bb)
-    return t, e
+                  h_rows, h_te, y, y_te, t, e, bad, scratch, k, m, n, b, bb)
+    return t, e, bad

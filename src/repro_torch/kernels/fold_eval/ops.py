@@ -1,11 +1,12 @@
 """Public wrapper for the fused fold_eval kernel.
 
 Carries the same residual-checked jitter retry as ``foldsolve`` (see
-:mod:`repro_torch.kernels.foldsolve.ops`): the fused kernel also returns
-the ê_Te block it solved against, so a failing fold re-solves only the
-fold-solve stage, through the foldsolve kernel, against the shifted
-system; the hat-row contraction is never repeated. A CPU tensor takes the
-plain version (``ref.py``); a CUDA tensor launches the kernel or raises.
+:mod:`repro_torch.kernels.foldsolve.ops`): a failing fold re-solves only
+the fold-solve stage against the shifted system and the ê_Te it was first
+solved against; the hat-row contraction is never repeated. On CUDA the
+contraction, the solve, the check and the retry are one launch. A CPU
+tensor takes the plain version (``ref.py``); a CUDA tensor launches the
+kernel or raises.
 """
 
 from __future__ import annotations
@@ -15,8 +16,7 @@ from typing import Optional
 import torch
 
 from repro_torch.kernels.fold_eval.fold_eval import fold_eval_cuda
-from repro_torch.kernels.fold_eval.ref import fold_eval_ref
-from repro_torch.kernels.foldsolve.ops import jitter_retry
+from repro_torch.kernels.fold_eval.ref import fold_eval_checked_ref, fold_eval_ref
 
 __all__ = ["fold_eval"]
 
@@ -33,9 +33,7 @@ def fold_eval(h_rows: torch.Tensor, h_te: torch.Tensor, y: torch.Tensor,
     if jitter not in ("auto", None):
         raise ValueError(f"jitter must be 'auto' or None, got {jitter!r}")
     if h_rows.device.type == "cpu":
-        t, e = fold_eval_ref(h_rows, h_te, y, y_te)
-    else:
-        t, e = fold_eval_cuda(h_rows, h_te, y, y_te)
-    if jitter == "auto":
-        t = jitter_retry(h_te, e, t)
-    return t
+        if jitter:
+            return fold_eval_checked_ref(h_rows, h_te, y, y_te)
+        return fold_eval_ref(h_rows, h_te, y, y_te)[0]
+    return fold_eval_cuda(h_rows, h_te, y, y_te, check=jitter == "auto")[0]

@@ -16,10 +16,12 @@ from repro_torch.core import fastcv, folds, multiclass
 from repro_torch.kernels import _build
 from repro_torch.kernels.flash_attention.ops import flash_attention
 from repro_torch.kernels.flash_attention.ref import attention_ref
+from repro_torch.kernels.fold_eval.fold_eval import fold_eval_cuda
 from repro_torch.kernels.fold_eval.ops import fold_eval
-from repro_torch.kernels.fold_eval.ref import fold_eval_ref
-from repro_torch.kernels.foldsolve.ops import fold_jitter, foldsolve
-from repro_torch.kernels.foldsolve.ref import foldsolve_ref
+from repro_torch.kernels.fold_eval.ref import fold_eval_checked_ref, fold_eval_ref
+from repro_torch.kernels.foldsolve.foldsolve import foldsolve_cuda
+from repro_torch.kernels.foldsolve.ops import fold_jitter, fold_residual_bad, foldsolve
+from repro_torch.kernels.foldsolve.ref import foldsolve_checked_ref, foldsolve_ref
 from repro_torch.kernels.gram.ops import gram
 from repro_torch.kernels.gram.ref import gram_ref
 from repro_torch.kernels.hat_apply.ops import hat_errors
@@ -214,6 +216,101 @@ def test_jitter_retry_on_the_card(gen):
     got = foldsolve(h_te, e)
     want = torch.linalg.solve(eye - h_te + fold_jitter(h_te)[:, None, None] * eye, e)
     _close(got, want, 1e-8)
+
+
+def _mixed_folds(gen, k, m, b, dtype):
+    """k folds with I − H_Te SPD, and fold 1 near-singular: Q·diag(1, …, d)·Qᵀ
+    for m ≥ 2 (d = 1e-14 in f64, 0 before the f32 rounding), its first 64
+    right-hand sides off the near-null direction (so that in f64 only its
+    later tiles fail the check); H = 1, a zero pivot, for m = 1."""
+    h_te = _h_te(gen, k, m, dtype)
+    e = torch.randn(k, m, b, generator=gen, device="cuda", dtype=torch.float64)
+    if m == 1:
+        h_te[1] = 1.0
+    else:
+        q, _ = torch.linalg.qr(torch.randn(m, m, generator=gen, device="cuda",
+                                           dtype=torch.float64))
+        d = torch.ones(m, device="cuda", dtype=torch.float64)
+        d[-1] = 1e-14 if dtype == torch.float64 else 0.0
+        eye = torch.eye(m, device="cuda", dtype=torch.float64)
+        h_te[1] = (eye - (q * d) @ q.T).to(dtype)
+        null = q[:, -1]
+        e[1, :, :64] -= torch.outer(null, null @ e[1, :, :64])
+    return h_te, e.to(dtype)
+
+
+_CHECKED_CASES = [(3, 12, 250), (40, 1, 64), (3, 17, 250), (3, 78, 250), (3, 230, 250),
+                  (2, 393, 250)]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("k,m,b", _CHECKED_CASES)
+def test_foldsolve_checked_kernel(gen, dtype, k, m, b):
+    """One launch with the check against the plain checked solve: the
+    near-singular fold is solved again whole, the healthy folds keep the
+    raw solve bit for bit, and the kernel's bad flags are its raw solve's."""
+    h_te, e = _mixed_folds(gen, k, m, b, dtype)
+    raw = foldsolve(h_te, e, jitter=None)
+    want_bad = fold_residual_bad(h_te, raw, e)
+    assert want_bad.tolist() == [i == 1 for i in range(k)]
+    before = _build.LAUNCHES["foldsolve"]
+    got, bad = foldsolve_cuda(h_te, e, check=True)
+    torch.cuda.synchronize()
+    assert _build.LAUNCHES["foldsolve"] == before + 1
+    assert torch.equal(bad, want_bad)
+    _close(got, foldsolve_checked_ref(h_te, e), TOL[dtype])
+    healthy = ~want_bad
+    assert torch.equal(got[healthy], raw[healthy])
+    assert not torch.equal(got[1, :, :64], raw[1, :, :64])
+    assert torch.equal(foldsolve(h_te, e), got)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("k,m,b", _CHECKED_CASES)
+def test_fold_eval_checked_kernel(gen, dtype, k, m, b):
+    """fold_eval's one launch against its plain checked version, on the same
+    folds; ê comes from the kernel's own contraction."""
+    h_te, e = _mixed_folds(gen, k, m, b, dtype)
+    n = 2 * m + 31
+    h_rows = torch.randn(k, m, n, generator=gen, device="cuda", dtype=dtype) / n
+    y = torch.randn(n, b, generator=gen, device="cuda", dtype=dtype)
+    y_te = (e + h_rows @ y).contiguous()
+    raw, e_hat, no_flags = fold_eval_cuda(h_rows, h_te, y, y_te, check=False)
+    assert no_flags is None
+    want_bad = fold_residual_bad(h_te, raw, e_hat)
+    assert want_bad.tolist() == [i == 1 for i in range(k)]
+    before = _build.LAUNCHES["fold_eval"]
+    got, e_got, bad = fold_eval_cuda(h_rows, h_te, y, y_te, check=True)
+    torch.cuda.synchronize()
+    assert _build.LAUNCHES["fold_eval"] == before + 1
+    assert torch.equal(bad, want_bad) and torch.equal(e_got, e_hat)
+    _close(got, fold_eval_checked_ref(h_rows, h_te, y, y_te), TOL[dtype])
+    healthy = ~want_bad
+    assert torch.equal(got[healthy], raw[healthy])
+    assert torch.equal(fold_eval(h_rows, h_te, y, y_te), got)
+
+
+@pytest.mark.parametrize("kernel", ["foldsolve", "fold_eval"])
+@pytest.mark.parametrize("near_singular", [False, True])
+def test_one_launch_per_call(gen, kernel, near_singular):
+    """Each call of the wrappers is one launch, with or without a fold to
+    retry, and with the check on or off."""
+    k, m, b = 10, 78, 250
+    if near_singular:
+        h_te, e = _mixed_folds(gen, k, m, b, torch.float64)
+    else:
+        h_te = _h_te(gen, k, m, torch.float64)
+        e = torch.randn(k, m, b, generator=gen, device="cuda", dtype=torch.float64)
+    h_rows = torch.randn(k, m, 300, generator=gen, device="cuda", dtype=torch.float64) / 300
+    y = torch.randn(300, b, generator=gen, device="cuda", dtype=torch.float64)
+    for jitter in ("auto", None, "auto"):
+        before = _build.LAUNCHES[kernel]
+        if kernel == "foldsolve":
+            foldsolve(h_te, e, jitter=jitter)
+        else:
+            fold_eval(h_rows, h_te, y, e, jitter=jitter)
+        torch.cuda.synchronize()
+        assert _build.LAUNCHES[kernel] == before + 1
 
 
 def test_binary_cv_on_the_card_equals_the_cpu(gen):

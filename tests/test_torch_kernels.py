@@ -27,8 +27,11 @@ from repro_torch.kernels.flash_attention import flash_attention as flash_launch
 from repro_torch.kernels.flash_attention.ops import flash_attention
 from repro_torch.kernels.flash_attention.ref import attention_ref
 from repro_torch.kernels.fold_eval.ops import fold_eval
+from repro_torch.kernels.fold_eval.ref import fold_eval_checked_ref, fold_eval_ref
 from repro_torch.kernels.foldsolve.foldsolve import SMEM_BYTES, aug_in_shared, block_cols
 from repro_torch.kernels.foldsolve.ops import fold_jitter, fold_residual_bad, foldsolve
+from repro_torch.kernels.foldsolve.ref import (_residual_tol, foldsolve_checked_ref,
+                                               foldsolve_ref)
 from repro_torch.kernels.gram.gram import dmma_gram_splits, gram_splits
 from repro_torch.kernels.gram.ops import (PRECISIONS, centered_gram, centered_gram_plain,
                                           check_precision, gram)
@@ -237,15 +240,90 @@ def test_foldsolve_jitter_noop_when_well_conditioned():
 
 def test_foldsolve_shared_memory_boundary():
     """The augmented block moves to global scratch past 227 KB, at any m."""
-    assert block_cols(250) == 64 and block_cols(1) == 1
+    assert block_cols(250) == 64 and block_cols(1) == 1 and block_cols(250, 16) == 16
     assert aug_in_shared(78, 64, 4) and aug_in_shared(78, 64, 8)
-    # f32 with 64 columns: the last m in shared memory is 210
+    # f32 with 64 columns: the last m in shared memory is 208 (the block, two
+    # row and two factor buffers, 100 elements of reduction scratch)
     last = max(m for m in range(1, 400) if aug_in_shared(m, 64, 4))
-    assert last == 210
-    assert (last * (last + 64) + 2 * last + 64) * 4 <= SMEM_BYTES
+    assert last == 208
+    w = last + 64
+    assert (last * w + 2 * w + 2 * last + 100) * 4 <= SMEM_BYTES
     assert not aug_in_shared(last + 1, 64, 4)
     assert not aug_in_shared(393, 64, 4)          # K = 2 at N = 787
     assert aug_in_shared(1, 64, 8)                # leave-one-out
+
+
+def test_residual_tol_is_the_kernels():
+    """The kernel takes √ε as sqrt of the type's ε in double, rounded to the
+    type (gauss_jordan.cuh::residual_tol); the plain version's
+    float(eps) ** 0.5 rounds to the same value in each type."""
+    assert np.float32(_residual_tol(torch.float32)) == np.float32(
+        np.sqrt(np.float64(np.finfo(np.float32).eps)))
+    assert _residual_tol(torch.float64) == np.sqrt(np.finfo(np.float64).eps) == 2.0 ** -26
+
+
+def _later_tile_failure(b=130, m=12, seed=40):
+    """Three folds; the middle one is near-singular, and its first 64
+    right-hand sides lie off the near-null direction, so only columns of
+    its second and third 64-column tiles fail the residual check."""
+    healthy = _h_te(2, m, np.float64, seed)
+    q, _ = np.linalg.qr(_rng(seed + 1).normal(size=(m, m)))
+    d = np.concatenate([np.ones(m - 1), [1e-14]])
+    h_te = np.stack([healthy[0], np.eye(m) - (q * d) @ q.T, healthy[1]])
+    e = _rng(seed + 2).normal(size=(3, m, b))
+    null = q[:, -1]
+    e[1, :, :64] -= np.outer(null, null @ e[1, :, :64])
+    return h_te, e
+
+
+@pytest.mark.parametrize("kernel", ["foldsolve", "fold_eval"])
+def test_retry_re_solves_a_fold_that_fails_only_in_a_later_tile(kernel):
+    """The retry's decision is the fold's: a fold whose failing columns all
+    lie past the first 64-column tile is solved again whole, as the
+    reference does; the healthy folds keep the raw solve bit for bit."""
+    h_te, e = _later_tile_failure()
+    k, m, b = e.shape
+    if kernel == "foldsolve":
+        def port(jitter):
+            return foldsolve(_t(h_te), _t(e), jitter=jitter)
+        ref = ref_foldsolve(jnp.asarray(h_te), jnp.asarray(e), interpret=True)
+        e_solved = e
+    else:
+        n = 40
+        h_rows = _rng(43).normal(size=(k, m, n)) / n
+        y = _rng(44).normal(size=(n, b))
+        y_te = e + np.einsum("kmn,nb->kmb", h_rows, y)
+
+        def port(jitter):
+            return fold_eval(_t(h_rows), _t(h_te), _t(y), _t(y_te), jitter=jitter)
+        ref = ref_fold_eval(jnp.asarray(h_rows), jnp.asarray(h_te), jnp.asarray(y),
+                            jnp.asarray(y_te), interpret=True)
+        e_solved = y_te - (_t(h_rows) @ _t(y)).numpy()
+    raw, got = port(None), port("auto")
+    per_tile = [fold_residual_bad(_t(h_te), raw[..., c:c + 64], _t(e_solved[..., c:c + 64]))
+                for c in range(0, b, 64)]
+    assert [t.tolist() for t in per_tile] == [[False, False, False], [False, True, False],
+                                              [False, True, False]]
+    assert torch.equal(got[0], raw[0]) and torch.equal(got[2], raw[2])
+    assert not torch.equal(got[1, :, :64], raw[1, :, :64])      # the first tile too
+    eps = fold_jitter(_t(h_te)).numpy()
+    shifted = np.linalg.solve(np.eye(m) - h_te[1] + eps[1] * np.eye(m), e_solved[1])
+    assert np.max(np.abs(got[1].numpy() - shifted)) <= 1e-8 * np.max(np.abs(shifted))
+    ref = np.asarray(ref)
+    assert np.max(np.abs(got.numpy() - ref)) <= 1e-8 * np.max(np.abs(ref))
+
+
+def test_checked_refs_are_the_cpu_route():
+    """foldsolve_checked_ref and fold_eval_checked_ref are what the wrappers
+    run on the CPU with jitter="auto"; jitter=None runs the raw solve."""
+    h_te, e = _later_tile_failure(b=70)
+    assert torch.equal(foldsolve(_t(h_te), _t(e)), foldsolve_checked_ref(_t(h_te), _t(e)))
+    assert torch.equal(foldsolve(_t(h_te), _t(e), jitter=None), foldsolve_ref(_t(h_te), _t(e)))
+    h_rows, _, y, y_te = _fold_eval_problem(3, 12, 30, 70, np.float64)
+    args = tuple(_t(a) for a in (h_rows, h_te, y, y_te))
+    assert torch.equal(fold_eval(*args), fold_eval_checked_ref(*args))
+    assert torch.equal(fold_eval(*args, jitter=None), fold_eval_ref(*args)[0])
+    assert not torch.equal(fold_eval(*args), fold_eval(*args, jitter=None))
 
 
 # ----------------------------------------------------------- fold_eval ----
