@@ -1,5 +1,5 @@
-"""Time gram, hat_apply, foldsolve and fold_eval of two checkouts on one
-NVIDIA GPU, in turns.
+"""Time gram, hat_apply, foldsolve, fold_eval and pairdist of two checkouts
+on one NVIDIA GPU, in turns.
 
 Run from the repository root, with another checkout unpacked beside it
 (for example a parent commit: ``git archive <commit> | tar -x -C
@@ -19,7 +19,11 @@ lm_probe path's (6, 64, 64), (6, 64, 64) in f64, and fold_eval at the
 main path's h_rows (10, 78, 787), y (787, 1) in f32 and at (6, 64, 384),
 (384, 64) in f64, each with jitter=None and as the paths call them
 (jitter="auto", the residual check and retry), beside batched
-``torch.linalg.solve`` (after a ``bmm`` for fold_eval). Each row
+``torch.linalg.solve`` (after a ``bmm`` for fold_eval); pairdist at the
+RSA path's U (8, 76,000) f32 and at a trial-level U (787, 76,000) in f32
+and f64, beside squared ``torch.cdist`` in the same dtype. gram's rows
+carry a digest of the result's bytes, so two sides that compute it bit for
+bit alike show the same digest. Each row
 is the CUDA-event time of the Python call (median of 20 after 3
 warm-ups, host launch path included), its device-busy time
 (torch.profiler), as ``chip_smoke.py`` times the ``kernels`` line, and
@@ -30,6 +34,7 @@ builds each side's kernels with nvcc at first use.
 
 from __future__ import annotations
 
+import hashlib
 import json
 import subprocess
 import sys
@@ -67,6 +72,7 @@ def side(src: str) -> dict:
     from repro_torch.kernels.foldsolve.ops import foldsolve
     from repro_torch.kernels.gram.ops import gram
     from repro_torch.kernels.hat_apply.ops import hat_errors
+    from repro_torch.kernels.pairdist.ops import pairwise_sq_dists
     import repro_torch
 
     if not torch.cuda.is_available():
@@ -91,7 +97,19 @@ def side(src: str) -> dict:
                          lambda: torch.addmm(y, h, y, alpha=-1.0))):
             out[row] = {"ms": cs.cuda_ms(fn), "device_ms": cs.device_ms(fn),
                         "kernel_us": kernel_us(fn)}
+            if row.startswith("gram"):   # the same bits on both sides, or not
+                out[row]["digest"] = hashlib.sha256(fn().cpu().numpy().tobytes()).hexdigest()[:16]
         del xc, h, y
+    for dt, c, p in ((torch.float32, 8, 76000), (torch.float32, 787, 76000),
+                     (torch.float64, 787, 76000)):
+        u = torch.randn(c, p, generator=gen, device="cuda", dtype=dt)
+        name = str(dt).removeprefix("torch.")
+        for row, fn in ((f"pairdist {name} ({c}, {p})", lambda: pairwise_sq_dists(u)),
+                        (f"cdist {name} ({c}, {p})", lambda: torch.cdist(
+                            u, u, compute_mode="use_mm_for_euclid_dist").square())):
+            out[row] = {"ms": cs.cuda_ms(fn), "device_ms": cs.device_ms(fn),
+                        "kernel_us": kernel_us(fn)}
+        del u
     for dt, k, m, b, n, bf in ((torch.float32, 10, 78, 250, 787, 1),
                                (torch.float64, 6, 64, 64, 384, 64)):
         a = torch.randn(k, m, m, generator=gen, device="cuda", dtype=dt) / (3 * m ** 0.5)

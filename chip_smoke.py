@@ -46,8 +46,11 @@ is held against its plain PyTorch version on the card (at each path's own
 shapes and column blocks, at ragged shapes, at f64, bf16, m = 1 and m = 393
 folds, a near-singular fold that forces the jitter retry, the one-launch
 checked foldsolve and fold_eval against the plain checked solve with a
-fold that fails only past its first column tile, a trial-level RDM
-of 787 patterns, and flash_attention at the LM paths' shapes and strided
+fold that fails only past its first column tile, pairdist on both its
+routes (the RSA path's condition means on route S, a trial-level RDM of
+787 patterns in f32, f64 and bf16 on route T, the route sweep's inputs on
+each route that takes them; every one exactly symmetric with a zero
+diagonal and bitwise repeatable), and flash_attention at the LM paths' shapes and strided
 layout, at head widths 128 and 64, a ragged length and f32 I/O), and the results are
 checked: against the Cholesky composite and against f64 composite runs
 (binary decision values, multi-class predictions, the RSA path's accuracy,
@@ -56,14 +59,16 @@ retraining per fold (binary at P = 3,800, multi-class at P = 1,900), and
 the LM's logits against the plain-attention model and its own forward.
 
 foldsolve's and fold_eval's instantiations must not spill (ptxas's report
-in the build phase). flash_attention's bf16 route, gram's f32 and bf16
-routes and hat_apply's f32 route must run on the tensor cores: the build
+in the build phase), nor may any of pairdist's (both routes). flash_attention's
+bf16 route, gram's f32 and bf16 routes (which pairdist's route T runs too)
+and hat_apply's f32 route must run on the tensor cores: the build
 phase counts the HGMMA
-instructions in each built library's SASS (cuobjdump; TF32 ones in libgram
-and libhat_apply, BF16 ones in libgram) and reads ptxas's report of those
-instantiations, and the run fails on no HGMMA or any spill. Their f64
-routes must run on the FP64 tensor cores: DMMA in the SASS of
-upper_gram_dmma_kernel and hat_apply_dmma_kernel, and no spill in either.
+instructions in each built library's SASS (cuobjdump; TF32 ones in libgram,
+libpairdist and libhat_apply, BF16 ones in libgram and libpairdist) and
+reads ptxas's report of those instantiations, and the run fails on no HGMMA
+or any spill. Their f64 routes must run on the FP64 tensor cores: DMMA in
+the SASS of upper_gram_dmma_kernel (libgram and libpairdist) and
+hat_apply_dmma_kernel, and no spill in any.
 gram at the main shape must also hold the f32 pin against the f64 product,
 be exactly symmetric and bitwise repeatable (f64: within 1e-9, symmetric
 and repeatable at the main and a ragged shape); hat_apply bitwise
@@ -74,7 +79,11 @@ in f32 and f64 and at the probe path's (f64) shapes, foldsolve and
 fold_eval there both without the check (jitter=None, the row) and as the
 paths call them (on_path_ms, jitter="auto"), foldsolve's checked launch by
 tile width (tile_widths), and gram's bf16_gram
-build (beside torch.mm with out_dtype=float32 where torch has it), with TFLOP/s on
+build (beside torch.mm with out_dtype=float32 where torch has it), pairdist at
+the RSA path's shape and the trial-level RDM in f32, f64 and bf16 (beside
+squared cdist; bf16 beside that torch.mm), with the route of each, and the
+route sweep behind the route rule (C = 8 … 256 at P = 76,000, f32 and
+f64: device ms of each route and of cdist), with TFLOP/s on
 the counted and on the issued operations for the tensor-core routes, and
 every row's device-busy time (torch.profiler) beside its CUDA-event time,
 for the kernel and for the library call. The f32 library calls must run
@@ -112,6 +121,10 @@ MC_CLASSES = 3
 MC_CHUNK = 64
 RSA_CONDITIONS = 8
 REPS = 20
+# pairdist's route sweep: C conditions of P features, f32 and f64, each C
+# on both routes where route S takes it (C <= 128)
+PD_SWEEP_C = (8, 16, 32, 64, 128, 256)
+PD_SWEEP_P = 76000
 
 # H100 SXM peaks (NVIDIA data sheet, dense): memory 3.35 TB/s; f32 67 TFLOP/s
 # outside the tensor cores; f64 67 TFLOP/s on the tensor cores; TF32 494.7
@@ -657,6 +670,8 @@ def main() -> None:
     from repro_torch.kernels.flash_attention.ops import flash_attention
     from repro_torch.kernels.flash_attention.ref import attention_ref
     from repro_torch.kernels.pairdist.ops import pairwise_sq_dists
+    from repro_torch.kernels.pairdist.pairdist import S_MAX_C as PD_S_MAX_C
+    from repro_torch.kernels.pairdist.pairdist import pairdist_cuda, pairdist_route
     from repro_torch.kernels.pairdist.ref import pairwise_sq_dists_ref
     from repro_torch.rsa import compare as rsa_compare
     from repro_torch.rsa import rdm as rsa_rdm
@@ -698,10 +713,13 @@ def main() -> None:
     # gram's f32 and bf16 routes and hat_apply's f32 route run on the tensor
     # cores: TF32 (and, for gram's bf16 input, BF16) HGMMA in their SASS, and
     # no spill in those instantiations
+    # (pairdist's many-pattern route runs gram's passes: the same checks)
     tc_libs, dmma_libs = {}, {}
     for name, kernel, dmma_kernel in (("gram", "upper_gram_tc_kernel", "upper_gram_dmma_kernel"),
                                       ("hat_apply", "hat_apply_tc_kernel",
-                                       "hat_apply_dmma_kernel")):
+                                       "hat_apply_dmma_kernel"),
+                                      ("pairdist", "upper_gram_tc_kernel",
+                                       "upper_gram_dmma_kernel")):
         lib = paths[name]
         sass = sass_text(lib)
         report = ptxas_report(lib.with_suffix(".log").read_text())
@@ -720,10 +738,23 @@ def main() -> None:
     fold_ptxas = {name: {k: v for k, v in ptxas_report(
         paths[name].with_suffix(".log").read_text()).items() if f"{name}_kernel" in k}
         for name in ("foldsolve", "fold_eval")}
+    # pairdist: every instantiation of both routes (route S's two passes,
+    # route T's first passes and its distance reduce); none may spill
+    pairdist_ptxas = ptxas_report(paths["pairdist"].with_suffix(".log").read_text())
     emit({"phase": "build", "seconds": build_s, "hash": _build.source_hash(),
           "ptxas": ptxas, "flash_hgmma": hgmma, "flash_tensor_core_ptxas": flash_tc,
           "tensor_core_routes": tc_libs, "fp64_tensor_core_routes": dmma_libs,
-          "fold_kernels_ptxas": fold_ptxas})
+          "fold_kernels_ptxas": fold_ptxas, "pairdist_ptxas": pairdist_ptxas})
+    pd_kinds = {kind: sum(kind in k for k in pairdist_ptxas) for kind in (
+        "pairdist_rows_kernel", "pairdist_rows_reduce_kernel", "DistanceOut",
+        "upper_gram_tc_kernel", "upper_gram_dmma_kernel")}
+    if pd_kinds != {"pairdist_rows_kernel": 3, "pairdist_rows_reduce_kernel": 2,
+                    "DistanceOut": 2, "upper_gram_tc_kernel": 2,
+                    "upper_gram_dmma_kernel": 1} or any(
+            v.get("spill_bytes", 1) for v in pairdist_ptxas.values()):
+        fail(f"pairdist's instantiations: want both routes' kernels (route S: f32/f64/bf16 "
+             f"and 2 reduces; route T: 2 tensor-core, 1 DMMA, 2 distance reduces) with 0 "
+             f"spill bytes, got {pd_kinds}, ptxas says {pairdist_ptxas}")
     for name, report in fold_ptxas.items():
         if len(report) != 4 or any(v.get("spill_bytes", 1) for v in report.values()):
             fail(f"{name}'s instantiations: want 4 (f32/f64 × register/memory route) with 0 "
@@ -736,9 +767,10 @@ def main() -> None:
         fail(f"flash_attention's bf16 instantiations: want D = 64, 128, 256 with 0 spill "
              f"bytes, ptxas says {flash_tc}")
     for name, info in tc_libs.items():
-        if info["hgmma_tf32"] == 0 or (name == "gram" and info["hgmma_bf16"] == 0):
+        gram_like = name in ("gram", "pairdist")   # an f32 and a bf16 instantiation
+        if info["hgmma_tf32"] == 0 or (gram_like and info["hgmma_bf16"] == 0):
             fail(f"lib{name}.so lacks the tensor-core products of its f32/bf16 routes: {info}")
-        want = 2 if name == "gram" else 1   # gram: the f32 and the bf16 instantiation
+        want = 2 if gram_like else 1
         if len(info["ptxas"]) != want or any(v.get("spill_bytes", 1) for v in
                                              info["ptxas"].values()):
             fail(f"{name}'s tensor-core instantiations: want {want} with 0 spill bytes, "
@@ -1231,26 +1263,46 @@ def main() -> None:
                   fold_eval(pl.h[t_], hb, yb, yb[t_], jitter=None),
                   fold_eval_ref(pl.h[t_], hb, yb, yb[t_])[0], TOL[f32])
     del plan3, perms3
-    # pairdist: the RSA path's condition means, a trial-level RDM of all 787
-    # patterns (f32, f64, bf16), and ragged shapes
-    main_err["pairdist"] = check("pairdist", f"rsa path ({c8}, {p}) f32",
-                                 pairwise_sq_dists(means8), pairwise_sq_dists_ref(means8),
-                                 TOL[f32], pairwise_sq_dists_ref(means8.double()))
-    pd_err = {(c8, "f32"): main_err["pairdist"]}
-    pd_err[(n, "f32")] = check("pairdist", f"trial ({n}, {p}) f32", pairwise_sq_dists(x8),
-                               pairwise_sq_dists_ref(x8), TOL[f32])
-    x8_64 = x8.double()
-    check("pairdist", f"trial ({n}, {p}) f64", pairwise_sq_dists(x8_64),
-          pairwise_sq_dists_ref(x8_64), TOL[f64])
-    x8b = x8.to(torch.bfloat16)
-    check("pairdist", f"trial ({n}, {p}) bf16", pairwise_sq_dists(x8b),
-          pairwise_sq_dists_ref(x8b), TOL[torch.bfloat16], pairwise_sq_dists_ref(x8b.double()))
-    del x8_64, x8b
+    # pairdist: the RSA path's condition means (route S), a trial-level RDM
+    # of all 787 patterns (route T: f32, f64, bf16), ragged shapes, and the
+    # route sweep's inputs on both routes; every one exactly symmetric with
+    # a zero diagonal, and bitwise repeatable
+
+    def check_pd(case, u, route=None, exact=False):
+        def call():   # the public entry point where the rule picks the route
+            return pairwise_sq_dists(u) if route is None else pairdist_cuda(u, route=route)
+
+        got = call()
+        want = pairwise_sq_dists_ref(u)
+        acc_t = want.dtype
+        err = check("pairdist", f"{case} {u.dtype}", got, want, TOL[u.dtype],
+                    pairwise_sq_dists_ref(u.double()) if exact else None)
+        row = checks[-1]
+        row["kernel_route"] = route or pairdist_route(*u.shape, u.dtype)
+        row["symmetric"] = torch.equal(got, got.T)
+        row["zero_diagonal"] = not bool(torch.diagonal(got).any())
+        row["repeatable"] = torch.equal(got, call())
+        row["ok"] = (row["ok"] and got.dtype == acc_t and row["symmetric"]
+                     and row["zero_diagonal"] and row["repeatable"])
+        return err
+
+    main_err["pairdist"] = check_pd(f"rsa path ({c8}, {p})", means8, exact=True)
+    pd_err = {(c8, "float32"): main_err["pairdist"]}
+    x8_64, x8b = x8.double(), x8.to(torch.bfloat16)
+    for u_ in (x8, x8_64, x8b):
+        pd_err[(n, str(u_.dtype).removeprefix("torch."))] = check_pd(
+            f"trial ({n}, {p})", u_, exact=u_.dtype == torch.bfloat16)
     for dt in (f32, f64):
         for cc, pp in ((5, 30), (33, 500), (130, 1037)):
-            ur = torch.randn(cc, pp, generator=gen, device=dev, dtype=dt)
-            check("pairdist", f"ragged ({cc}, {pp}) {dt}", pairwise_sq_dists(ur),
-                  pairwise_sq_dists_ref(ur), TOL[dt])
+            check_pd(f"ragged ({cc}, {pp})", torch.randn(cc, pp, generator=gen, device=dev,
+                                                         dtype=dt))
+    sweep_inputs = {}
+    for dt in (f32, f64):
+        for cc in PD_SWEEP_C:
+            u_ = torch.randn(cc, PD_SWEEP_P, generator=gen, device=dev, dtype=dt)
+            sweep_inputs[(cc, dt)] = u_
+            for route in ("S", "T") if cc <= PD_S_MAX_C else ("T",):
+                check_pd(f"sweep ({cc}, {PD_SWEEP_P}) route {route}", u_, route=route)
     # flash_attention: the LM paths' own shapes and layout (gemma2-2b's serve
     # prefill of 4 × 2,048, its local and global layers at 8,192 tokens, the
     # probe's 384 × 128; q/k/v as (B, H, S, D) views of (B, S, H, D) memory,
@@ -1450,23 +1502,53 @@ def main() -> None:
                 "max_abs_err": bf16_gram_err, "tol": TOL[torch.bfloat16],
                 "library_note": bf16_note})
         kernels.append(entry)
-    # pairdist: the RSA path's shape (its launches) and a trial-level RDM
+    # pairdist: the RSA path's shape (its launches; route S) and a
+    # trial-level RDM in f32, f64 and bf16 (route T), each with the route
+    # the rule gave it; then the route sweep behind the rule, device ms
+    def cdist_sq(u):
+        return lambda: torch.cdist(u, u, compute_mode="use_mm_for_euclid_dist").square()
+
     shapes = []
-    for u in (means8, x8):
+    xb8_lib, xb8_note = bf16_mm_f32(x8b)
+    for u in (means8, x8, x8_64, x8b):
         cu, pu = u.shape
-        shapes.append({**timing({
+        dname = str(u.dtype).removeprefix("torch.")
+        route = pairdist_route(cu, pu, u.dtype)
+        # bounds: route T's f32 runs 3×TF32 on the tensor cores, as gram's
+        # row counts it; f64 on DMMA (the f64 peak); bf16 at the bf16 peak
+        peak = {"float32": "tf32" if route == "T" else f32, "float64": f64,
+                "bfloat16": torch.bfloat16}[dname]
+        row = {**timing({
             "kernel": lambda u=u: pairwise_sq_dists(u),
             "plain": lambda u=u: pairwise_sq_dists_ref(u),
-            "library": lambda u=u: torch.cdist(
-                u, u, compute_mode="use_mm_for_euclid_dist").square(),
-            "bytes": (cu * pu + cu * cu) * f4, "flops": cu * (cu + 1) * pu,
-            "shape": f"U ({cu}, {pu}) f32"}), "max_abs_err": pd_err[(cu, "f32")]})
+            "library": xb8_lib if u.dtype == torch.bfloat16 else cdist_sq(u),
+            "bytes": cu * pu * u.element_size() + cu * cu * (8 if u.dtype == f64 else f4),
+            "flops": cu * (cu + 1) * pu, "dtype": peak,
+            "shape": f"U ({cu}, {pu}) {dname}" + (" in, f32 out" if dname == "bfloat16"
+                                                 else "")}),
+            "max_abs_err": pd_err[(cu, dname)], "tol": TOL[u.dtype], "kernel_route": route}
+        if u.dtype == torch.bfloat16:
+            row["library_note"] = (f"{xb8_note}: the Gram product alone (bf16 in, f32 out), "
+                                   "no distance epilogue")
+        elif u.dtype == f64:
+            row["library_note"] = "torch.cdist in f64, squared"
+        shapes.append(row)
+    route_sweep = []
+    for (cc, dt), u in sweep_inputs.items():
+        rs = {"c": cc, "p": PD_SWEEP_P, "dtype": str(dt).removeprefix("torch."),
+              "rule": pairdist_route(cc, PD_SWEEP_P, dt)}
+        for route in ("S", "T") if cc <= PD_S_MAX_C else ("T",):
+            rs[f"{route}_device_ms"] = device_ms(lambda u=u, route=route: pairdist_cuda(
+                u, route=route))
+        rs["cdist_device_ms"] = device_ms(cdist_sq(u))
+        route_sweep.append(rs)
+    del sweep_inputs, x8_64, x8b
     kernels.append({
         "name": "pairdist", "route": "cuda", "source": "src/repro_torch/csrc/pairdist.cu",
         "replaces": "src/repro/kernels/pairdist/pairdist.py:55",
         "launches": launches_rsa["pairdist"],
         "launches_by_path": {k: v["pairdist"] for k, v in by_path.items()},
-        "tol": TOL[f32], **shapes[0], "shapes": shapes})
+        "tol": TOL[f32], **shapes[0], "shapes": shapes, "route_sweep": route_sweep})
     # flash_attention: gemma2-2b's global layer at 8,192 tokens (the row),
     # its local layer and the probe's shape; SDPA as the library yardstick,
     # timed with K/V expanded to Hq heads beforehand, the boolean

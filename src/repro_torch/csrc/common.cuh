@@ -49,10 +49,9 @@ inline cudaError_t set_smem_once(std::atomic<uint32_t>& done, Kernel kernel, siz
   return err;
 }
 
-// Σ_s ws[s·total + src] over `splits` partials, added in split order (as
-// upper_gram.cuh's split_sum), with the loads issued eight at a time: a
-// reduce pass's threads wait on one round trip per eight partials, not one
-// per partial.
+// Σ_s ws[s·total + src] over `splits` partials, added in split order, with
+// the loads issued eight at a time: a reduce pass's threads wait on one
+// round trip per eight partials, not one per partial.
 template <typename T>
 __device__ __forceinline__ T ordered_split_sum(const T* __restrict__ ws, size_t src, size_t total,
                                                int splits) {
@@ -67,6 +66,13 @@ __device__ __forceinline__ T ordered_split_sum(const T* __restrict__ ws, size_t 
       if (s + i < splits) sum += v[i];
   }
   return sum;
+}
+
+// Grid of a grid-stride pass of kThreads-thread blocks over `total`
+// entries (at most 4096 blocks).
+inline int stride_blocks(size_t total) {
+  const size_t want = (total + kThreads - 1) / kThreads;
+  return static_cast<int>(want < 4096 ? want : 4096);
 }
 
 // Launch `kernel` as a programmatic dependent of the work before it on

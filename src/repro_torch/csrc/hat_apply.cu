@@ -62,7 +62,6 @@
 //     16 different bank pairs;
 //   * the tile of E goes out through shared memory, a warp to a row;
 //   * f64 products and sums need no split and no fresh accumulator.
-#include "upper_gram.cuh"        // stride_blocks
 #include "dmma.cuh"              // the f64 tensor-core primitives
 #include "upper_gram_tc.cuh"     // store16 and the sm90 primitives
 

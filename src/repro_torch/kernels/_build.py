@@ -35,8 +35,14 @@ BUILD_ROOT = PACKAGE / "_build"
 
 KERNELS = ("gram", "hat_apply", "foldsolve", "fold_eval", "pairdist", "flash_attention")
 
+#: ``-fno-gnu-unique``: a function-local static of a header's inline or
+#: template function (a launcher's once-per-device shared-memory opt-in
+#: flag) stays one per library. As a GNU unique symbol the loader would
+#: bind it once per process, and a second library launching the same
+#: header's kernel would skip its own opt-in (libgram and libpairdist both
+#: launch the tensor-core Gram pass).
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-              "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+              "-shared", "-Xcompiler", "-fPIC,-fno-gnu-unique", "-Xptxas", "-v")
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
@@ -54,8 +60,8 @@ ARGTYPES = {
                   for t in ("f32", "f64")},
     # (h_rows, h_te, y, y_te, t, e, bad, scratch, k, m, n, b, bb, stream)
     "fold_eval": {f"fold_eval_{t}": (_P,) * 8 + (_I,) * 5 + (_P,) for t in ("f32", "f64")},
-    # (u, ws, d, c, p, splits, stream)
-    "pairdist": {f"pairdist_{t}": (_P, _P, _P, _I, _I, _I, _P) for t in ("f32", "f64", "bf16")},
+    # (u, ws, d, c, p, route, parts, stream)
+    "pairdist": {f"pairdist_{t}": (_P, _P, _P, _I, _I, _I, _I, _P) for t in ("f32", "f64", "bf16")},
     # (q, k, v, o, b, hq, hkv, s, d, 12 strides, scale, softcap, causal, window, stream)
     "flash_attention": {f"flash_attention_{t}": (_P,) * 4 + (_I,) * 17 + (_F, _F, _I, _I, _P)
                         for t in ("f32", "bf16")},

@@ -18,8 +18,6 @@ import torch
 from repro_torch.kernels import _build
 from repro_torch.kernels.common import cdiv, require_cuda, sm_count
 
-#: Output tile rows of the SIMT first pass (pairdist's).
-TILE = 64
 #: Output tile rows of the tensor-core routes (f32 and bf16 on wgmma, f64 on DMMA).
 TC_TILE = 128
 #: Waves of one block per SM the tensor-core routes' split counts may fill.
@@ -34,13 +32,6 @@ DMMA_K = 16
 
 _SYMBOLS = {torch.float32: "gram_f32", torch.float64: "gram_f64",
             torch.bfloat16: "gram_bf16"}
-
-
-def gram_splits(n: int, p: int, sms: int) -> int:
-    """Contraction splits giving about two blocks per SM over the upper tiles."""
-    tiles = cdiv(n, TILE)
-    upper = tiles * (tiles + 1) // 2
-    return max(1, min(cdiv(2 * sms, upper), cdiv(p, MIN_SPLIT_P)))
 
 
 def tc_gram_splits(n: int, p: int, sms: int) -> int:

@@ -1,7 +1,8 @@
 """Public wrapper for the pairdist kernel: checks and dispatch.
 
 A CPU tensor takes the plain version (``ref.py``); a CUDA tensor launches
-the kernel (``pairdist.py``) or raises. Ragged C and P are masked inside
+the kernel on the route its shape takes (``pairdist.py``: few conditions
+bytes-bound, many patterns on gram's tensor-core passes) or raises. Ragged C and P are masked inside
 the kernel, so nothing is padded; the TPU kernel's lane-replicated
 (C, 128) norms input has no counterpart (the kernel takes the norms from
 the diagonal of its own product).

@@ -27,6 +27,7 @@ from repro_torch.kernels.gram.ref import gram_ref
 from repro_torch.kernels.hat_apply.ops import hat_errors
 from repro_torch.kernels.hat_apply.ref import hat_apply_ref
 from repro_torch.kernels.pairdist.ops import pairwise_sq_dists
+from repro_torch.kernels.pairdist.pairdist import S_MAX_C, S_THRESHOLD, pairdist_cuda
 from repro_torch.kernels.pairdist.ref import pairwise_sq_dists_ref
 from repro_torch.models import model as M
 from repro_torch.models import transformer as T
@@ -321,21 +322,55 @@ def test_binary_cv_on_the_card_equals_the_cpu(gen):
     _close(gpu.cpu(), cpu, 1e-9)
 
 
-@pytest.mark.parametrize("dtype", [torch.float32, torch.float64, torch.bfloat16])
-@pytest.mark.parametrize("c,p", [(2, 7), (5, 30), (8, 76000), (33, 500), (130, 1037),
-                                 (200, 5000)])
-def test_pairdist_kernel(gen, dtype, c, p):
-    """Against the plain version (of the f32 cast, for bf16): ≤ 1e-5 / 1e-9 of
-    max |D|; the kernel's diagonal is exactly 0 and D exactly symmetric.
-    (A single pattern has only the diagonal, where the plain version's
-    rounding is all of its max |D|: that case is checked on its own.)"""
-    u = torch.randn(c, p, generator=gen, device="cuda", dtype=torch.float32).to(dtype)
-    got = _launched("pairdist", lambda: pairwise_sq_dists(u))
+def _pairdist_held(u, route):
+    """One route (None: the rule's) against the plain version (of the f32
+    cast, for bf16): ≤ 1e-5 / 1e-9 of max |D|, exactly symmetric, an
+    exactly zero diagonal, bitwise repeatable."""
+    call = (lambda: pairwise_sq_dists(u)) if route is None else (
+        lambda: pairdist_cuda(u, route=route))
+    got = _launched("pairdist", call)
     want = pairwise_sq_dists_ref(u)
-    assert got.dtype == (torch.float32 if dtype == torch.bfloat16 else dtype)
+    assert got.dtype == (torch.float32 if u.dtype == torch.bfloat16 else u.dtype)
     _close(got, want, TOL[got.dtype])
     assert bool((got >= 0).all()) and torch.equal(got, got.T)
-    assert torch.equal(torch.diagonal(got), torch.zeros(c, device="cuda", dtype=got.dtype))
+    assert torch.equal(torch.diagonal(got), torch.zeros(u.shape[0], device="cuda",
+                                                        dtype=got.dtype))
+    assert torch.equal(got, call())
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64, torch.bfloat16])
+@pytest.mark.parametrize("c,p,route", [
+    (2, 7, None), (5, 30, None), (8, 76000, None), (33, 500, None), (130, 1037, None),
+    (200, 5000, None),
+    # both routes on either side of the rule's threshold
+    (S_THRESHOLD, 2048, "S"), (S_THRESHOLD, 2048, "T"),
+    (S_THRESHOLD + 1, 2048, "S"), (S_THRESHOLD + 1, 2048, "T"),
+    (8, 76000, "T"), (S_MAX_C, 3001, "S"),
+    (787, 2048, "T"),                      # a trial-level RDM's width, short P
+    (8, 1037, "S"), (13, 30001, "S"),      # P not a multiple of 4: narrow loads
+])
+def test_pairdist_kernel(gen, dtype, c, p, route):
+    """(A single pattern has only the diagonal, where the plain version's
+    rounding is all of its max |D|: that case is checked on its own.)"""
+    u = torch.randn(c, p, generator=gen, device="cuda", dtype=torch.float32).to(dtype)
+    _pairdist_held(u, route)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64, torch.bfloat16])
+@pytest.mark.parametrize("route", ["S", "T"])
+def test_pairdist_kernel_reads_rows_that_start_unaligned(gen, dtype, route):
+    """U one element past a 16-byte boundary: route S copies element by
+    element, route T its tensor-core pass's narrow pieces."""
+    base = torch.randn(40 * 1000 + 1, generator=gen, device="cuda").to(dtype)
+    _pairdist_held(base[1:].view(40, 1000), route)
+
+
+def test_pairdist_kernel_refuses_what_a_route_does_not_take(gen):
+    u = torch.zeros(S_MAX_C + 1, 64, device="cuda")
+    with pytest.raises(ValueError, match="route S takes"):
+        pairdist_cuda(u, route="S")
+    with pytest.raises(ValueError, match="route must be"):
+        pairdist_cuda(u, route="X")
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.float64, torch.bfloat16])

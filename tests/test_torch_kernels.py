@@ -32,14 +32,14 @@ from repro_torch.kernels.foldsolve.foldsolve import SMEM_BYTES, aug_in_shared, b
 from repro_torch.kernels.foldsolve.ops import fold_jitter, fold_residual_bad, foldsolve
 from repro_torch.kernels.foldsolve.ref import (_residual_tol, foldsolve_checked_ref,
                                                foldsolve_ref)
-from repro_torch.kernels.gram.gram import dmma_gram_splits, gram_splits
+from repro_torch.kernels.gram.gram import dmma_gram_splits, tc_gram_splits
 from repro_torch.kernels.gram.ops import (PRECISIONS, centered_gram, centered_gram_plain,
                                           check_precision, gram)
 from repro_torch.kernels.hat_apply.hat_apply import dmma_hat_splits
 from repro_torch.kernels.hat_apply.ops import hat_errors
 from repro_torch.kernels.pairdist import pairdist as pairdist_launch
 from repro_torch.kernels.pairdist.ops import pairwise_sq_dists
-from repro_torch.kernels.pairdist.ref import pairwise_sq_dists_ref
+from repro_torch.kernels.pairdist.ref import distance_from_partials_ref, pairwise_sq_dists_ref
 
 TOL = {np.float64: 1e-9, np.float32: 1e-5}
 
@@ -101,15 +101,6 @@ def test_gram_precision_names():
     assert torch.equal(gram(x, center=True), gram(x, center=True, precision="fp32"))
     with pytest.raises(ValueError, match="precision"):
         gram(x, precision="fp8")
-
-
-def test_gram_splits_fill_the_card():
-    # main size: 13 tiles → 91 upper tiles; 132 SMs → 3 splits, 273 blocks
-    assert gram_splits(787, 76000, 132) == 3
-    # a short contraction is not split below 1024 columns per split
-    assert gram_splits(787, 1500, 132) == 2
-    assert gram_splits(8, 16, 132) == 1
-    assert gram_splits(4096, 76000, 132) == 1
 
 
 # The f64 routes (FP64 tensor cores): gram fills whole waves of one 128-row
@@ -362,7 +353,9 @@ def test_fold_eval_jitter_near_singular():
 
 # ------------------------------------------------------------ pairdist ----
 
-@pytest.mark.parametrize("c,p", [(5, 30), (8, 128), (33, 500), (17, 1000)])
+@pytest.mark.parametrize("c,p", [(5, 30), (8, 128), (33, 500), (17, 1000),
+                                 (pairdist_launch.S_THRESHOLD, 300),
+                                 (pairdist_launch.S_THRESHOLD + 1, 300)])
 @pytest.mark.parametrize("dtype", [np.float64, np.float32])
 def test_pairdist_matches_reference(c, p, dtype):
     """The reference's own sweep: ≤ 1e-5 (f32) / 1e-9 (f64) of max |D|; every
@@ -375,6 +368,69 @@ def test_pairdist_matches_reference(c, p, dtype):
     d = got.numpy()
     assert np.all(d >= 0.0)
     assert np.max(np.abs(np.diag(d))) <= TOL[dtype] * np.max(np.abs(d))
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64, torch.bfloat16])
+@pytest.mark.parametrize("c,route", [
+    (1, "S"), (8, "S"),                                   # the RSA path's condition means
+    (pairdist_launch.S_THRESHOLD, "S"), (pairdist_launch.S_THRESHOLD + 1, "T"),
+    (128, "T"), (787, "T"),                               # a single-trial RDM
+])
+def test_pairdist_route_rule(c, route, dtype):
+    """Few conditions take the bytes-bound route S, many patterns gram's
+    tensor-core passes (route T); S takes every C up to the threshold."""
+    assert pairdist_launch.pairdist_route(c, 76000, dtype) == route
+    assert pairdist_launch.S_THRESHOLD <= pairdist_launch.S_MAX_C
+
+
+# Route S: about one block per SM, each over a whole number of 16-column
+# pieces (so every dtype's 16-byte pieces start on a block's edge), never
+# fewer than 256 columns; together the blocks cover P exactly once. The
+# grid does not depend on C: every block reads all C rows.
+@pytest.mark.parametrize("p,blocks,cols", [
+    (76000, 132, 576),   # the RSA path's U (8, 76,000): one block per SM
+    (30, 1, 256),        # a short P: one block
+    (1037, 5, 256),      # a ragged P: the last block takes 13 columns
+    (20000, 79, 256),    # 152 columns a block asked: 256, on 79 blocks
+])
+def test_pairdist_s_grid_fills_the_card(p, blocks, cols):
+    got = pairdist_launch.s_grid(p, 132)
+    assert got == (blocks, cols)
+    assert cols % pairdist_launch.S_COL_ALIGN == 0
+    assert (blocks - 1) * cols < p <= blocks * cols
+    assert blocks <= 132 or cols == pairdist_launch.S_MIN_COLS
+
+
+@pytest.mark.parametrize("c,entries", [(1, 64), (8, 64), (9, 192), (64, 36 * 64), (128, 136 * 64)])
+def test_pairdist_s_workspace_holds_every_upper_tile(c, entries):
+    assert pairdist_launch.s_workspace_entries(c) == entries
+
+
+@pytest.mark.parametrize("dtype", [np.float32, np.float64])
+def test_pairdist_t_epilogue_is_exactly_symmetric(dtype):
+    """Route T's reduce, emulated: split partials whose diagonal 128-row
+    tiles are not symmetric (as 3×TF32's big·small + small·big leaves them)
+    still give an exactly symmetric D with an exactly zero diagonal, within
+    the pin of the plain version, because only the element upper triangle
+    is read and the norms are the summed diagonal."""
+    rng = _rng(11)
+    c, p = 150, 5000
+    splits = tc_gram_splits(c, p, 132)
+    assert splits > 1
+    u = rng.normal(size=(c, p)).astype(dtype)
+    parts = np.stack([u[:, k] @ u[:, k].T for k in np.array_split(np.arange(p), splits)])
+    # below the diagonal: inside the two diagonal 128-row tiles, the
+    # products' own rounding, not their mirror's; below them, never written
+    eps = np.finfo(dtype).eps
+    lower = np.tril(rng.normal(size=parts.shape) * eps * np.abs(parts), -1)
+    lower[:, 128:, :128] = np.nan
+    ws = _t((parts + lower).astype(dtype))
+    assert not torch.equal(ws[0, :128, :128], ws[0, :128, :128].T)
+    d = distance_from_partials_ref(ws)
+    assert d.dtype == ws.dtype and torch.equal(d, d.T)
+    assert not bool(torch.diagonal(d).any()) and bool((d >= 0).all())
+    _close(d, pairwise_sq_dists_ref(_t(u)), dtype)
+    assert torch.equal(d, distance_from_partials_ref(torch.triu(ws)))   # lower never read
 
 
 def test_pairdist_bf16_accumulates_in_f32():
