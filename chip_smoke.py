@@ -19,6 +19,22 @@ P = 76,000 features, 10-fold CV) through the package's public entry points:
   Euclidean RDM, and Spearman model scoring with a 1000-draw
   condition-permutation null;
 
+then three more on the same subject:
+
+* multidim: a classifier per time point (``multidim.cv_grid`` over the
+  301 points of 787 trials × 380 channels; every plan primal, P < N) and
+  the 301 × 301 ``time_generalization``, λ from Ledoit-Wolf shrinkage at
+  the post-stimulus point of largest evoked power (Eq. 18); against the
+  f64 composite route, Eq. 14 with the regression bias, and chance before
+  the stimulus;
+* tune: ``tuning.tune_ridge`` on the default 25-point grid (MSE and error)
+  and ``shrinkage.ledoit_wolf_lambda`` at P = 76,000 (their N×N Gram
+  forms); the f64 curve against analytical CV on LOO folds (fold_eval at
+  m = 1), the f32 curve and intensity against f64;
+* update: ``fastcv.update_plan``, ``sliding_window`` and ``downdate_plan``
+  on a plan of 777 trials, each step against ``prepare`` rebuilt on its
+  rows, in f32 and f64;
+
 and two paths of the LLM substrate at gemma2-2b's full width and depth
 (26 layers, d_model 2,304, 8/4 heads of 256, vocabulary 256,000, bf16,
 random weights from a seed):
@@ -37,7 +53,9 @@ random weights from a seed):
   each.
 
 Each path's launch counts are reset before it and read after it; every
-kernel the path should run must have launched (flash_attention exactly
+kernel the path should run must have launched (the multidim, tune and
+update paths exactly as often as their calls make: 301 hat_apply and
+foldsolve, one gram a tuning call, none in an update) (flash_attention exactly
 once per layer in each prefill and forward, never in decode), and each
 call of foldsolve and fold_eval must be one launch, its residual check and
 jitter retry inside (on lm_probe, one foldsolve launch per hat_apply
@@ -146,6 +164,27 @@ TOL_DVALS_F32 = 2e-3
 TOL_RDM_F32 = 1e-4
 # Analytical CV against retraining per fold, in f64 (the paper's exactness).
 TOL_EXACT = 1e-8
+# The multidim phase: accuracies of the kernel route (f32) against the f64
+# composite route point by point, off the samples whose f64 decision value
+# lies within MD_MARGIN of max |dv| (or within the f32 route's own distance
+# from f64, where that is larger) of 0; fold weights' decision values
+# against Eq. 14's within TOL_FOLD_WEIGHTS of max |dv| (f32); "above
+# chance" is more than 3 binomial standard deviations over 0.5.
+MD_MARGIN = 1e-6
+TOL_FOLD_WEIGHTS = 1e-4
+# The tune phase: the f64 LOO curve against analytical CV on LOO folds (the
+# reference's own pin), the f32 curve and the f32 Ledoit-Wolf intensity
+# against f64; grid points of the pin.
+TOL_TUNE_PIN = 1e-6
+TOL_TUNE_F32 = 1e-4
+TOL_LW_F32 = 1e-4
+TUNE_PIN_POINTS = (0, 12, 24)
+# The update phase: a plan on the first UPDATE_N0 trials, advanced by
+# UPDATE_ROWS rows a step; updated plans' decision values against a rebuild
+# within TOL_UPDATE of max |dv| (the reference's pin).
+UPDATE_N0, UPDATE_ROWS = 777, 10
+UPDATE_WARM = 5            # warm repeats of each update and rebuild, timed
+TOL_UPDATE = 1e-5
 # The LLM substrate at gemma2-2b's full width and depth (bf16).
 LM_ARCH = "gemma2-2b"
 LM_BATCH, LM_PROMPT, LM_DECODE = 4, 2048, 64      # 64 greedy decode steps
@@ -467,6 +506,282 @@ def bf16_mm_f32(xb: torch.Tensor) -> tuple:
         return None, f"torch.mm(..., out_dtype=torch.float32) is not available: {err}"
     return (lambda: torch.mm(xb, xb.T, out_dtype=torch.float32),
             "torch.mm(xb, xb.T, out_dtype=torch.float32)")
+
+
+def launch_delta(before: dict, after: dict) -> dict:
+    """Launches (and fold-kernel calls) between two ``counts()``."""
+    out = {k: after[k] - before[k] for k in after if k != "calls"}
+    out["calls"] = {k: after["calls"][k] - before["calls"][k] for k in after["calls"]}
+    return out
+
+
+def launch_sum(a: dict, b: dict) -> dict:
+    out = {k: a[k] + b[k] for k in a if k != "calls"}
+    out["calls"] = {k: a["calls"][k] + b["calls"][k] for k in a["calls"]}
+    return out
+
+
+def counted(fn):
+    """(fn's result, host seconds up to a synchronize, its launches)."""
+    before = counts()
+    out, secs = timed(fn)
+    return out, secs, launch_delta(before, counts())
+
+
+def expect_exact(path: str, launches: dict, want: dict) -> None:
+    """Each kernel launched exactly as often as ``want`` says (0 if absent),
+    each fold-kernel call one launch."""
+    got = {k: v for k, v in launches.items() if k != "calls"}
+    wanted = {k: want.get(k, 0) for k in got}
+    if got != wanted:
+        fail(f"the {path} path's launches: want {wanted}, got {got}")
+    expect_launches(path, launches, [k for k, v in want.items() if v])
+
+
+def multidim_phase(ds, y, folds) -> dict:
+    """The paper's multi-dimensional use (§4.2) at full width: a classifier
+    per time point of the main subject (301 points of 787 trials × 380
+    channels, f32, K = 10) by ``cv_grid``, their 301 × 301
+    ``time_generalization``, λ from Ledoit-Wolf shrinkage at the
+    post-stimulus point of largest evoked power, converted by Eq. 18. Each
+    point's P = 380 < N, so every plan is primal."""
+    from repro_torch.core import fastcv, multidim, shrinkage
+
+    xs = ds.epochs.permute(2, 0, 1).contiguous()                # (301, 787, 380) f32
+    t_pts, n, p = xs.shape
+    post = torch.nonzero(ds.times > 0).flatten()
+    power = (ds.epochs.mean(dim=0) ** 2).sum(dim=0)              # evoked power per point
+    peak = int(post[power[post].argmax()])
+    x_pk = xs[peak]
+    lam_s = float(shrinkage.ledoit_wolf_lambda(x_pk))
+    lam = float(shrinkage.shrink_to_ridge(lam_s, shrinkage.trace_scaling(x_pk)))
+    reset_counts()
+    accs, t_grid = timed(lambda: multidim.cv_grid(xs, y, folds, lam))
+    tg, t_tg = timed(lambda: multidim.time_generalization(xs, y, folds, lam))
+    launches = counts()
+    expect_exact("multidim", launches, {"hat_apply": t_pts, "foldsolve": t_pts})
+    if accs.shape != (t_pts,) or tg.shape != (t_pts, t_pts) or not (
+            bool(((accs >= 0) & (accs <= 1)).all()) and bool(((tg >= 0) & (tg <= 1)).all())):
+        fail("multidim accuracies are not shares of the expected shapes")
+
+    te = folds.te_idx.long()
+    km = te.numel()
+    sign_te = torch.sign(y[te])
+
+    def hits(dv):
+        return int((torch.where(dv >= 0, 1.0, -1.0).to(dv.dtype) == sign_te.to(dv.dtype)).sum())
+
+    # (a) each checked point's grid accuracy against the f64 composite route;
+    # (b) the time-generalization diagonal against Eq. 14 with the
+    # regression bias (the fold weights' convention); (c) the fold weights'
+    # decision values against Eq. 14's
+    rows = []
+    for t in sorted(set(range(0, t_pts, 10)) | {peak}):
+        x_t = xs[t]
+        dv32, _ = fastcv.binary_cv(x_t, y, folds, lam)
+        dv64 = fastcv.binary_dvals(fastcv.prepare(x_t.double(), folds, lam), y.double(),
+                                   fused=False)
+        scale = float(dv64.abs().max())
+        err = float((dv32.double() - dv64).abs().max())
+        ties = int((dv64.abs() <= max(MD_MARGIN * scale, err)).sum())
+        ws, bs = multidim.fold_weights(x_t, y, folds, lam)
+        dv_w = torch.einsum("kmp,kp->km", x_t[te], ws) + bs[:, None]
+        dv_nb, _ = fastcv.binary_cv(x_t, y, folds, lam, adjust_bias=False)
+        err_w = float((dv_w - dv_nb).abs().max())
+        ties_nb = int((dv_nb.abs() <= err_w).sum())
+        grid_hits, diag_hits = round(float(accs[t]) * km), round(float(tg[t, t]) * km)
+        row = {"t": t, "time_s": float(ds.times[t]), "accuracy": float(accs[t]),
+               "grid_hits": grid_hits, "route_hits": hits(dv32), "f64_hits": hits(dv64),
+               "dvals_f32_vs_f64": err, "scale": scale, "near_ties": ties,
+               "diag_hits": diag_hits, "eq14_hits": hits(dv_nb),
+               "fold_weights_vs_eq14": err_w, "eq14_scale": float(dv_nb.abs().max()),
+               "eq14_near_ties": ties_nb}
+        row["ok"] = (grid_hits == row["route_hits"] and abs(grid_hits - row["f64_hits"]) <= ties
+                     and abs(diag_hits - row["eq14_hits"]) <= ties_nb)
+        rows.append(row)
+    pk = next(r for r in rows if r["t"] == peak)
+    pre = ds.times < 0
+    pre_mean = float(accs[pre].double().mean())
+    above = 0.5 + 3 * (0.25 / km) ** 0.5
+    out = {"phase": "multidim", "T": t_pts, "N": n, "P": p, "K": folds.k, "m": folds.test_size,
+           "dtype": "float32", "mode": "primal", "peak": peak,
+           "peak_time_s": float(ds.times[peak]), "lam_shrink": lam_s, "lam": lam,
+           "lam_rule": "ledoit_wolf_lambda at the peak, then shrink_to_ridge(., trace_scaling)",
+           "peak_accuracy": float(accs[peak]), "max_accuracy": float(accs.max()),
+           "pre_stimulus_mean_accuracy": pre_mean, "above_chance": above,
+           "diagonal_vs_cv_grid_max_gap": float((torch.diagonal(tg) - accs).abs().max()),
+           "launches": launches, "seconds": {"cv_grid": t_grid, "time_generalization": t_tg},
+           "checked_points": rows,
+           "fold_weights_at_peak": {"max_abs_err": pk["fold_weights_vs_eq14"],
+                                    "scale": pk["eq14_scale"], "tol": TOL_FOLD_WEIGHTS},
+           "fold_weights_max_rel_err": max(r["fold_weights_vs_eq14"] / r["eq14_scale"]
+                                           for r in rows)}
+    emit(out)
+    bad = [r["t"] for r in rows if not r["ok"]]
+    if bad:
+        fail(f"multidim accuracies disagree with the f64 composite or Eq. 14 at points {bad}")
+    if pk["fold_weights_vs_eq14"] > TOL_FOLD_WEIGHTS * pk["eq14_scale"]:
+        fail("fold weights do not reproduce Eq. 14's decision values at the peak")
+    if abs(pre_mean - 0.5) > 0.1 or float(accs[peak]) <= above:
+        fail(f"multidim: pre-stimulus mean {pre_mean} is not chance, or the peak "
+             f"{float(accs[peak])} does not decode above {above}")
+    return {"launches": launches, "plan": fastcv.prepare(x_pk, folds, lam), "lam": lam}
+
+
+def ref_form_f32_curve(x, y, lambdas):
+    """The LOO MSE curve by the reference's f32 arithmetic: an f32
+    eigendecomposition of the f32 Gram, the curve in f32 (for comparison
+    only; ``tuning.loo_curve`` projects the Gram and works in f64)."""
+    from repro_torch.kernels.gram.ops import centered_gram
+
+    evals, u = torch.linalg.eigh(centered_gram(x))
+    evals = evals.clamp(min=0.0)
+    w = evals[None] / (evals[None] + lambdas.float()[:, None])
+    y_hat = y.mean() + (w * (u.T @ y)) @ u.T
+    h_diag = 1.0 / x.shape[0] + ((u * u) @ w.T).T
+    return (((y - y_hat) / (1.0 - h_diag).clamp(min=1e-12)) ** 2).mean(dim=1)
+
+
+def tune_phase(x, x64, y) -> dict:
+    """λ tuning at the main features (787 × 76,000 f32): ``tune_ridge`` on
+    the default 25-point grid for both criteria, and the Ledoit-Wolf
+    intensity of X (its N×N Gram form)."""
+    from repro_torch.core import folds as folds_mod, regression, shrinkage, tuning
+
+    n = x.shape[0]
+    runs, launches = {}, None
+    for crit in ("mse", "error"):
+        res, secs, d = counted(lambda crit=crit: tuning.tune_ridge(x, y, criterion=crit))
+        expect_exact(f"tune ({crit})", d, {"gram": 1})
+        runs[crit] = {"best_lambda": float(res.best_lambda), "best_score": float(res.best_score),
+                      "best_index": int(torch.argmin(res.scores)), "seconds": secs,
+                      "launches": d, "result": res}
+        launches = d if launches is None else launch_sum(launches, d)
+    lw, t_lw, d = counted(lambda: shrinkage.ledoit_wolf_lambda(x))
+    expect_exact("ledoit_wolf", d, {"gram": 1})
+    launches = launch_sum(launches, d)
+    # (a) the f64 curve against analytical CV on LOO folds (fold_eval, m = 1);
+    # (b) the f32 curve against the f64 one; (c) Ledoit-Wolf f32 against f64
+    before = counts()
+    lambdas = runs["mse"]["result"].lambdas
+    curve64 = tuning.loo_curve(x64, y.double(), lambdas)
+    loo = folds_mod.loo(n, device=x.device)
+    pins = []
+    for i in TUNE_PIN_POINTS:
+        preds, y_te = regression.analytical_cv(x64, y.double(), loo, float(lambdas[i]))
+        mse = float(((preds - y_te) ** 2).mean())
+        pins.append({"index": i, "lam": float(lambdas[i]), "loo_curve": float(curve64[i]),
+                     "analytical_cv": mse, "rel_err": abs(float(curve64[i]) - mse) / mse})
+    check_launches = launch_delta(before, counts())
+    scores32 = runs["mse"]["result"].scores
+    rel_f32 = ((scores32.double() - curve64).abs() / curve64.abs())
+    ref_form = ref_form_f32_curve(x, y, lambdas)
+    rel_ref_form = ((ref_form.double() - curve64).abs() / curve64.abs())
+    lw64 = float(shrinkage.ledoit_wolf_lambda(x64))
+    out = {"phase": "tune", "N": n, "P": x.shape[1], "dtype": "float32", "grid": "tr(G_c)/N · "
+           "logspace(-4, 2, 25)", "lambdas": lambdas.tolist(),
+           "mse": {k: v for k, v in runs["mse"].items() if k != "result"},
+           "error": {k: v for k, v in runs["error"].items() if k != "result"},
+           "ledoit_wolf": {"f32": float(lw), "f64": lw64, "seconds": t_lw, "launches": d,
+                           "tol": TOL_LW_F32},
+           "launches": launches,
+           "pin_vs_analytical_cv_loo": {"points": pins, "tol": TOL_TUNE_PIN},
+           "f32_vs_f64_curve": {"max_rel_err": float(rel_f32.max()),
+                                "rel_err": rel_f32.tolist(), "tol": TOL_TUNE_F32},
+           "reference_f32_arithmetic_vs_f64_curve": {"max_rel_err": float(rel_ref_form.max()),
+                                                     "rel_err": rel_ref_form.tolist()},
+           "check_launches": check_launches}
+    emit(out)
+    for crit in ("mse", "error"):
+        sc = runs[crit]["result"].scores
+        if sc.shape != (25,) or not bool(torch.isfinite(sc).all()):
+            fail(f"tune_ridge ({crit}) scores are not 25 finite values")
+    if any(pn["rel_err"] > TOL_TUNE_PIN for pn in pins):
+        fail("the f64 LOO curve does not equal analytical CV on LOO folds")
+    if float(rel_f32.max()) > TOL_TUNE_F32:
+        fail("the f32 LOO curve strays from the f64 curve")
+    if not (0.0 <= float(lw) <= 1.0) or abs(float(lw) - lw64) > TOL_LW_F32:
+        fail("the f32 Ledoit-Wolf intensity strays from f64 or leaves [0, 1]")
+    return {"launches": launches, "check_launches": check_launches}
+
+
+def update_phase(x, x64, y, lam, x_more, y_more) -> dict:
+    """Incremental plans at the main size: a plan on the first 777 trials
+    (kfold(777, 10): m = 77, 7 train-only rows), ``update_plan`` appending
+    trials 777–786 (one a fold), ``sliding_window`` dropping rows 0–9 and
+    appending ``x_more`` (10 further trials), ``downdate_plan`` dropping one
+    test row a fold; after each step the plan against ``prepare`` rebuilt on
+    the step's rows, in f32 and in f64, and both calls' seconds: the first
+    call's and the median of UPDATE_WARM warm ones (the warm calls are not
+    in the launch counts). λ = tr(G_c)/N of the main features."""
+    from repro_torch.core import fastcv, folds as folds_mod
+
+    dev = x.device
+    path = check = None
+    steps = []
+    for xd in (x, x64):
+        dt = xd.dtype
+        yd, y_more_d, x_more_d = y.to(dt), y_more.to(dt), x_more.to(dt)
+        rows, labels = xd[:UPDATE_N0], yd[:UPDATE_N0]
+        plan = fastcv.prepare(rows, folds_mod.kfold(UPDATE_N0, K, seed=SEED, device=dev), lam)
+        moves = (
+            ("update_plan", lambda p, r: fastcv.update_plan(
+                p, xd[UPDATE_N0:UPDATE_N0 + UPDATE_ROWS], torch.arange(K), x=r, lam=lam),
+             lambda r, lb, p: (torch.cat([r, xd[UPDATE_N0:UPDATE_N0 + UPDATE_ROWS]]),
+                               torch.cat([lb, yd[UPDATE_N0:UPDATE_N0 + UPDATE_ROWS]]))),
+            ("sliding_window", lambda p, r: fastcv.sliding_window(
+                p, x_more_d, torch.arange(UPDATE_ROWS), x=r, lam=lam),
+             lambda r, lb, p: (torch.cat([r[UPDATE_ROWS:], x_more_d]),
+                               torch.cat([lb[UPDATE_ROWS:], y_more_d]))),
+            ("downdate_plan", lambda p, r: fastcv.downdate_plan(
+                p, p.te_idx[:, 0], x=r, lam=lam), None),
+        )
+        for name, move, new_rows in moves:
+            if new_rows is None:
+                drop = plan.te_idx[:, 0].long()
+                keep = torch.ones(rows.shape[0], dtype=torch.bool, device=dev)
+                keep[drop] = False
+                nxt = (rows[keep], labels[keep])
+            else:
+                nxt = new_rows(rows, labels, plan)
+            upd, t_upd, d_upd = counted(lambda: move(plan, rows))
+            dv_upd, _, d_dv = counted(lambda: fastcv.binary_dvals(upd, nxt[1]))
+            rebuilt, t_reb, d_reb = counted(lambda: fastcv.prepare(
+                nxt[0], folds_mod.Folds.with_indices(upd.te_idx, upd.tr_idx), lam))
+            dv_reb, _, d_dv2 = counted(lambda: fastcv.binary_dvals(rebuilt, nxt[1]))
+            # the same two calls again, warm: the first ones pay first-call costs
+            warm_upd = statistics.median(timed(lambda: move(plan, rows))[1]
+                                         for _ in range(UPDATE_WARM))
+            warm_reb = statistics.median(timed(lambda: fastcv.prepare(
+                nxt[0], folds_mod.Folds.with_indices(upd.te_idx, upd.tr_idx), lam))[1]
+                for _ in range(UPDATE_WARM))
+            expect_exact(f"update ({name}, {dt})", d_upd, {})
+            d_path, d_check = launch_sum(d_upd, d_dv), launch_sum(d_reb, d_dv2)
+            path = d_path if path is None else launch_sum(path, d_path)
+            check = d_check if check is None else launch_sum(check, d_check)
+            err, scale = rel_err(dv_upd, dv_reb)
+            step = {"step": name, "dtype": str(dt).removeprefix("torch."), "N": int(nxt[0].shape[0]),
+                    "m": int(upd.te_idx.shape[1]), "seconds_update": t_upd,
+                    "seconds_rebuild": t_reb, "warm_median_seconds_update": warm_upd,
+                    "warm_median_seconds_rebuild": warm_reb,
+                    "max_abs_dH": float((upd.h - rebuilt.h).abs().max()),
+                    "max_abs_dchol_ih": float((upd.chol_ih - rebuilt.chol_ih).abs().max()),
+                    "max_abs_dh_tr_te": float((upd.h_tr_te - rebuilt.h_tr_te).abs().max()),
+                    "dvals": {"max_abs_err": err, "scale": scale, "tol": TOL_UPDATE}}
+            step["ok"] = (upd.h.dtype == dt and upd.h.shape == rebuilt.h.shape
+                          and torch.equal(upd.te_idx, rebuilt.te_idx)
+                          and bool(torch.isfinite(dv_upd).all()) and err <= TOL_UPDATE * scale)
+            steps.append(step)
+            plan, (rows, labels) = upd, nxt
+            del rebuilt
+    emit({"phase": "update", "lam": lam, "lam_rule": "tr(G_c)/N", "N0": UPDATE_N0,
+          "rows_a_step": UPDATE_ROWS, "new_rows": "trials 787-796 of a 797-trial simulation "
+          "of the same seed", "steps": steps, "launches": path, "check_launches": check})
+    bad = [(s_["step"], s_["dtype"]) for s_ in steps if not s_["ok"]]
+    if bad:
+        fail(f"updated plans disagree with their rebuilds: {bad}")
+    expect_exact("update", path, {"hat_apply": 6, "foldsolve": 6})
+    return {"launches": path, "check_launches": check}
 
 
 def lm_serve_phase(dev):
@@ -1058,6 +1373,16 @@ def main() -> None:
     if bad_rdms:
         fail(f"RSA RDMs disagree with the f64 composite run: {bad_rdms}")
 
+    # -- 6b. multi-dimensional analyses, λ tuning, incremental plans ----------
+    md = multidim_phase(ds, y, folds)
+    tune = tune_phase(x, x64, y)
+    ds_more = eeg.simulate_subject(SEED, n_trials=N_TRIALS + UPDATE_ROWS, device=dev)
+    x_more = eeg.windowed_features(ds_more, 5.0)[N_TRIALS:].contiguous()
+    y_more = (1 - 2 * ds_more.y[N_TRIALS:]).to(x.dtype)
+    del ds_more
+    upd = update_phase(x, x64, y, lam, x_more, y_more)
+    del x_more
+
     # -- 7. the LLM substrate: serving and layer probes at gemma2-2b width -----
     lm_model, lm_cfg, launches_serve = lm_serve_phase(dev)
     launches_probe = lm_probe_phase(lm_model, lm_cfg, dev)
@@ -1184,6 +1509,28 @@ def main() -> None:
                         yp[:, :64].contiguous()[t_], jitter=None),
               fold_eval_ref(plan.h[t_], hb, yp[:, :64].contiguous(),
                             yp[:, :64].contiguous()[t_])[0], TOL[f32])
+    # the multidim, tune and update paths' new shapes: hat_apply on the peak
+    # point's primal H (P = 380 < N: not symmetrised, from a matmul) with one
+    # label column, foldsolve on that plan's fold blocks, and fold_eval at
+    # the LOO shape of the tune phase's pin, in f32 and f64
+    h_md, te_md = md["plan"].h, md["plan"].te_idx
+    hb_md = h_md[te_md[:, :, None], te_md[:, None, :]]
+    e_md = hat_errors(h_md, y1)
+    new_err = {
+        "hat_apply": check("hat_apply", f"multidim primal H ({n}, {n}) Y ({n}, 1) f32", e_md,
+                           hat_apply_ref(h_md, y1), TOL[f32]),
+        "foldsolve": check("foldsolve", f"multidim primal K={K} m={te_md.shape[1]} B=1 f32",
+                           foldsolve(hb_md, e_md[te_md], jitter=None),
+                           foldsolve_ref(hb_md, e_md[te_md]), TOL[f32])}
+    loo_te = folds_mod.loo(n, device=dev).te_idx
+    loo_in = {}
+    for dt, hh in ((f32, plan.h), (f64, plan.h.double())):
+        yy = y1.to(dt)
+        hb = hh[loo_te[:, :, None], loo_te[:, None, :]]
+        loo_in[dt] = (hh[loo_te], hb, yy, yy[loo_te])
+        new_err[("fold_eval", dt)] = check(
+            "fold_eval", f"tune LOO K={n} m=1 N={n} B=1 {dt}",
+            fold_eval(*loo_in[dt], jitter=None), fold_eval_ref(*loo_in[dt])[0], TOL[dt])
     # near-singular folds: the retry must engage and match the shifted solve
     q, _ = torch.linalg.qr(torch.randn(12, 12, generator=gen, device=dev, dtype=f64))
     d = torch.ones(12, device=dev, dtype=f64)
@@ -1399,7 +1746,44 @@ def main() -> None:
          "shape": f"h_rows ({kk_}, {m_}, {n}), y ({n}, 1) f32"},
     ]
     by_path = {"binary": launches, "multiclass": launches_mc, "rsa": launches_rsa,
+               "multidim": md["launches"], "tune": tune["launches"], "update": upd["launches"],
                "lm_serve": launches_serve, "lm_probe": launches_probe}
+    # the new paths' shapes (launches: the path that runs the shape; the
+    # fold_eval LOO rows run only in the tune phase's f64 check)
+    km_, mm_ = te_md.shape
+    eye_md = torch.eye(mm_, device=dev).expand(km_, mm_, mm_)
+    new_rows = {"hat_apply": [{
+        "kernel": lambda: hat_errors(h_md, y1), "plain": lambda: hat_apply_ref(h_md, y1),
+        "library": lambda: torch.addmm(y1, h_md, y1, alpha=-1.0),
+        "bytes": (n * n + 2 * n) * f4, "flops": 2 * n * n, "dtype": "tf32",
+        "shape": f"multidim: primal H ({n}, {n}), Y ({n}, 1) f32",
+        "max_abs_err": new_err["hat_apply"], "launches": md["launches"]["hat_apply"],
+        "tol": TOL[f32]}],
+        "foldsolve": [{
+            "kernel": lambda: foldsolve(hb_md, e_md[te_md], jitter=None),
+            "on_path": lambda: foldsolve(hb_md, e_md[te_md]),
+            "plain": lambda: foldsolve_ref(hb_md, e_md[te_md]),
+            "library": lambda: torch.linalg.solve(eye_md - hb_md, e_md[te_md]),
+            "bytes": (km_ * mm_ * mm_ + 2 * km_ * mm_) * f4,
+            "flops": km_ * (2 * mm_ ** 3 / 3 + 2 * mm_ * mm_),
+            "shape": f"multidim: primal h_te ({km_}, {mm_}, {mm_}), e ({km_}, {mm_}, 1) f32",
+            "max_abs_err": new_err["foldsolve"], "launches": md["launches"]["foldsolve"],
+            "tol": TOL[f32]}],
+        "fold_eval": [{
+            "kernel": lambda a=loo_in[dt]: fold_eval(*a, jitter=None),
+            "on_path": lambda a=loo_in[dt]: fold_eval(*a),
+            "plain": lambda a=loo_in[dt]: fold_eval_ref(*a),
+            "library": lambda a=loo_in[dt], dt=dt: torch.linalg.solve(
+                torch.eye(1, device=dev, dtype=dt).expand(n, 1, 1) - a[1],
+                a[3] - torch.bmm(a[0], a[2].expand(n, n, 1))),
+            "bytes": (n * n + n + n + 3 * n) * (4 if dt == f32 else 8),
+            "flops": 2 * n * n + n * (2 / 3 + 2), "dtype": dt,
+            "shape": f"tune LOO: h_rows ({n}, 1, {n}), y ({n}, 1) "
+                     f"{str(dt).removeprefix('torch.')}",
+            "max_abs_err": new_err[("fold_eval", dt)],
+            "launches": tune["check_launches"]["fold_eval"] if dt == f64 else 0,
+            "launches_note": "the tune phase's check (analytical_cv on LOO folds, f64)",
+            "tol": TOL[dt]} for dt in (f32, f64)]}
 
     # the lm_probe path's own f64 shapes: 384 sequences of d_model 2,304
     # features, K = 6 folds of 64, permutation chunks of 64 labels (random
@@ -1483,6 +1867,11 @@ def main() -> None:
         if r["name"] in main64_rows:
             entry["shapes"].append({**timing(main64_rows[r["name"]]),
                                     "max_abs_err": main64_err[r["name"]], "tol": TOL[f64]})
+        if r["name"] in new_rows:
+            entry.setdefault("shapes", [{**main_t, "max_abs_err": main_err[r["name"]]}])
+            entry["shapes"] += [{**timing(nr), **{k: nr[k] for k in (
+                "max_abs_err", "launches", "tol", "launches_note") if k in nr}}
+                for nr in new_rows[r["name"]]]
         if r["name"] == "foldsolve":   # the checked launch by tile width, B in one block last
             entry["tile_widths"] = [
                 {"shape": shape, "bb": bb, "blocks": K_ * min(-(-b_w // bb), 8),

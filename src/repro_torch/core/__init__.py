@@ -6,6 +6,9 @@ from repro_torch.core import (  # noqa: F401
     lda,
     metrics,
     multiclass,
+    multidim,
     permutation,
     regression,
+    shrinkage,
+    tuning,
 )

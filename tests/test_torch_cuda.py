@@ -186,7 +186,8 @@ def _h_te(gen, k, m, dtype):
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
-@pytest.mark.parametrize("k,m,b", [(40, 1, 3), (10, 78, 250), (3, 17, 70), (2, 230, 5)])
+@pytest.mark.parametrize("k,m,b", [(40, 1, 3), (787, 1, 1), (10, 78, 250), (3, 17, 70),
+                                   (2, 230, 5)])
 def test_foldsolve_kernel(gen, dtype, k, m, b):
     h_te = _h_te(gen, k, m, dtype)
     e = torch.randn(k, m, b, generator=gen, device="cuda", dtype=dtype)
@@ -195,7 +196,8 @@ def test_foldsolve_kernel(gen, dtype, k, m, b):
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
-@pytest.mark.parametrize("k,m,n,b", [(10, 78, 787, 1), (3, 17, 131, 70), (2, 230, 460, 3)])
+@pytest.mark.parametrize("k,m,n,b", [(10, 78, 787, 1), (787, 1, 787, 1), (3, 17, 131, 70),
+                                     (2, 230, 460, 3)])
 def test_fold_eval_kernel(gen, dtype, k, m, n, b):
     h_rows = torch.randn(k, m, n, generator=gen, device="cuda", dtype=dtype) / n
     h_te = _h_te(gen, k, m, dtype)
@@ -320,6 +322,46 @@ def test_binary_cv_on_the_card_equals_the_cpu(gen):
     gpu = fastcv.binary_cv(x, y, folds.kfold(60, 5, device="cuda"), 50.0)[0]
     cpu = fastcv.binary_cv(x.cpu(), y.cpu(), folds.kfold(60, 5, device="cpu"), 50.0)[0]
     _close(gpu.cpu(), cpu, 1e-9)
+
+
+@pytest.mark.parametrize("dtype,tol", [(torch.float32, 1e-4), (torch.float64, 1e-9)])
+def test_primal_plan_dvals_through_the_kernels(gen, dtype, tol):
+    """P = 380 < N = 787, the multidim path's per-point features: prepare
+    builds the primal hat matrix (a matmul's output, not symmetrised), which
+    hat_apply and foldsolve take as it is; the kernel route equals the
+    Cholesky composite on the same plan. (f32: Gauss–Jordan against
+    Cholesky, ~1e-6 of scale.)"""
+    n, p = 787, 380
+    x = torch.randn(n, p, generator=gen, device="cuda", dtype=dtype)
+    y = torch.where(torch.rand(n, generator=gen, device="cuda") < 0.5, 1.0, -1.0).to(dtype)
+    plan = fastcv.prepare(x, folds.kfold(n, 10, device="cuda"), 300.0)
+    assert plan.h.is_contiguous() and plan.h.data_ptr() % 16 == 0
+    got = _launched("foldsolve", lambda: _launched(
+        "hat_apply", lambda: fastcv.binary_dvals(plan, y)))
+    _close(got, fastcv.binary_dvals(plan, y, fused=False), tol)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+def test_update_plan_on_the_card(gen, dtype):
+    """update_plan advances a plan on the card (float64 math there, no
+    kernel launch) to its rebuild within the reference's 1e-5; the kernel
+    route's decision values on both plans agree as closely. λ = tr(G_c)/N.
+    Rows on another device than the plan's are refused."""
+    n, k, p = 200, 10, 3000
+    x = torch.randn(n + k, p, generator=gen, device="cuda", dtype=dtype)
+    xc = x[:n] - x[:n].mean(dim=0)
+    lam = float((xc * xc).sum()) / n
+    plan = fastcv.prepare(x[:n], folds.kfold(n, k, device="cuda"), lam)
+    before = dict(_build.LAUNCHES)
+    upd = fastcv.update_plan(plan, x[n:], torch.arange(k), x=x[:n], lam=lam)
+    assert _build.LAUNCHES == before and upd.h.device == x.device and upd.h.dtype == dtype
+    rebuilt = fastcv.prepare(x, folds.Folds.with_indices(upd.te_idx, upd.tr_idx), lam)
+    for name in ("h", "chol_ih", "h_tr_te"):
+        _close(getattr(upd, name), getattr(rebuilt, name), 1e-5)
+    y = torch.where(torch.arange(n + k, device="cuda") % 2 == 0, 1.0, -1.0).to(dtype)
+    _close(fastcv.binary_dvals(upd, y), fastcv.binary_dvals(rebuilt, y), 1e-5)
+    with pytest.raises(ValueError, match="x_new must be a tensor on the plan's device"):
+        fastcv.update_plan(plan, x[n:].cpu(), torch.arange(k), x=x[:n], lam=lam)
 
 
 def _pairdist_held(u, route):
