@@ -19,7 +19,7 @@ P = 76,000 features, 10-fold CV) through the package's public entry points:
   Euclidean RDM, and Spearman model scoring with a 1000-draw
   condition-permutation null;
 
-then three more on the same subject:
+then four more on the same subject:
 
 * multidim: a classifier per time point (``multidim.cv_grid`` over the
   301 points of 787 trials × 380 channels; every plan primal, P < N) and
@@ -34,6 +34,14 @@ then three more on the same subject:
 * update: ``fastcv.update_plan``, ``sliding_window`` and ``downdate_plan``
   on a plan of 777 trials, each step against ``prepare`` rebuilt on its
   rows, in f32 and f64;
+* serve: ``repro_torch.serve.CVEngine`` on the card: the subject registered
+  and warmed, one ``run_workloads`` batch of every workload kind (binary,
+  ridge and 3-class CV, binary and 3-class permutation tests at T = 1,000,
+  one padded batch of 1,024 each, 8-condition RSA with 2 model RDMs and a
+  1,000-draw null, ``tune`` over 25 λ, a 301-point ``grid``), an
+  ``update`` of 10 trials and a warm replay, each step's launches exact,
+  the results against the direct ``core`` / ``rsa`` calls, and a
+  ``PlanStore`` round trip with zero builds;
 
 and two paths of the LLM substrate at gemma2-2b's full width and depth
 (26 layers, d_model 2,304, 8/4 heads of 256, vocabulary 256,000, bf16,
@@ -55,7 +63,8 @@ random weights from a seed):
 Each path's launch counts are reset before it and read after it; every
 kernel the path should run must have launched (the multidim, tune and
 update paths exactly as often as their calls make: 301 hat_apply and
-foldsolve, one gram a tuning call, none in an update) (flash_attention exactly
+foldsolve, one gram a tuning call, none in an update; the serve path's
+warm-up, first batch, update and replay as predicted) (flash_attention exactly
 once per layer in each prefill and forward, never in decode), and each
 call of foldsolve and fold_eval must be one launch, its residual check and
 jitter retry inside (on lm_probe, one foldsolve launch per hat_apply
@@ -116,6 +125,7 @@ line. Without a CUDA device, or without the package beside it, it fails.
 
 from __future__ import annotations
 
+import collections
 import dataclasses
 import json
 import re
@@ -139,6 +149,10 @@ MC_CLASSES = 3
 MC_CHUNK = 64
 RSA_CONDITIONS = 8
 REPS = 20
+# warm replays of the serve phase's batch, timed and then profiled
+REPLAYS = 5
+SERVE_SHAPE_NOTE = ("the serve path's launches at this shape: warm-up, first batch, "
+                    "update and replay")
 # pairdist's route sweep: C conditions of P features, f32 and f64, each C
 # on both routes where route S takes it (C <= 128)
 PD_SWEEP_C = (8, 16, 32, 64, 128, 256)
@@ -248,15 +262,25 @@ def cuda_ms(fn, reps: int = REPS, warmup: int = 3) -> float:
 
 def device_ms(fn, reps: int = REPS, warmup: int = 3):
     """Median over ``reps`` calls of ``fn`` of the device-busy time of each
-    call: the union of its kernels', copies' and memsets' intervals from
-    torch.profiler, after warm-up (the sum of their times where they do not
-    overlap; a kernel launched as a programmatic dependent starts before its
-    predecessor ends and waits, and is not counted twice). A short marker
-    kernel (torch.cuda._sleep) runs before each call and after the last, and
-    a call's events are those between two markers: the profiler may drop
-    events, so calls are not told apart by counting. None when fewer than
-    half the calls were seen whole. The calls are not the ones ``cuda_ms``
-    timed: profiling adds host time."""
+    call (:func:`device_calls`); None when fewer than half the calls were
+    seen whole. The calls are not the ones ``cuda_ms`` timed: profiling adds
+    host time."""
+    calls = device_calls(fn, reps, warmup)
+    return None if calls is None else statistics.median(b for b, _ in calls)
+
+
+def device_calls(fn, reps: int = REPS, warmup: int = 3):
+    """(busy ms, span ms) of each of ``reps`` calls of ``fn`` after warm-up,
+    from torch.profiler. Busy: the union of the call's kernels', copies' and
+    memsets' intervals (the sum of their times where they do not overlap; a
+    kernel launched as a programmatic dependent starts before its
+    predecessor ends and waits, and is not counted twice). Span: the
+    device's time from the end of the marker before the call to the start of
+    the marker after it, the call's wall time as the device saw it, idle
+    gaps included. A short marker kernel (torch.cuda._sleep) runs before each
+    call and after the last, and a call's events are those between two
+    markers: the profiler may drop events, so calls are not told apart by
+    counting. None when fewer than half the calls were seen whole."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -272,19 +296,20 @@ def device_ms(fn, reps: int = REPS, warmup: int = 3):
     events = sorted((e for e in prof.events() if e.device_type == DeviceType.CUDA),
                     key=lambda e: e.time_range.start)
     marks = [i for i, e in enumerate(events) if "spin_kernel" in e.name]
-    busy = []
+    calls = []
     for a, b in zip(marks, marks[1:]):
         total, end = 0.0, float("-inf")
         for e in events[a + 1:b]:
             total += max(0.0, e.time_range.end - max(e.time_range.start, end))
             end = max(end, e.time_range.end)
         if b > a + 1:
-            busy.append(total)
-    if len(busy) < reps // 2:
-        print(f"device_ms: {len(events)} device events, {len(marks)} markers, "
-              f"{len(busy)} whole calls of {reps}", file=sys.stderr)
+            span = events[b].time_range.start - events[a].time_range.end
+            calls.append((total / 1e3, span / 1e3))
+    if len(calls) < reps // 2:
+        print(f"device_calls: {len(events)} device events, {len(marks)} markers, "
+              f"{len(calls)} whole calls of {reps}", file=sys.stderr)
         return None
-    return statistics.median(busy) / 1e3
+    return calls
 
 
 def rel_err(got: torch.Tensor, want: torch.Tensor) -> tuple:
@@ -321,6 +346,13 @@ def reset_counts() -> None:
     _build.reset_launches()
     for name in FOLD_CALLS:
         FOLD_CALLS[name] = 0
+
+
+def shape_counts() -> collections.Counter:
+    """Launches per (kernel, the entry point's int arguments) since
+    reset_counts()."""
+    from repro_torch.kernels import _build
+    return collections.Counter(_build.LAUNCH_SHAPES)
 
 
 def counts() -> dict:
@@ -782,6 +814,335 @@ def update_phase(x, x64, y, lam, x_more, y_more) -> dict:
         fail(f"updated plans disagree with their rebuilds: {bad}")
     expect_exact("update", path, {"hat_apply": 6, "foldsolve": 6})
     return {"launches": path, "check_launches": check}
+
+
+def serve_phase(ds, x, y, folds, lam, grid_lam, x_more) -> dict:
+    """The serving core (``repro_torch.serve``) at the paper's size: a
+    ``CVEngine`` on the card, the main subject (787 × 76,000 f32, K = 10,
+    λ = tr(G_c)/N) registered once and warmed for every bucket of the
+    traffic (binary, ridge, 3-class, permutation; then RSA with 8
+    conditions, contrast dissimilarity and 2 model RDMs), then one
+    ``run_workloads`` batch of one workload of each kind — binary, ridge
+    and 3-class CV, binary and 3-class permutation tests (T = 1,000: one
+    padded batch of 1,024), an 8-condition RSA scored against 2 model RDMs
+    with a 1,000-draw null, ``tune`` on the default 25 λ, and a 301-point
+    ``grid`` of the multidim path's features — an ``update`` appending 10
+    trials, and the same batch again, warm. The class and condition labels
+    are the subject's binary label y (trial t mod 2) split by ⌊t/2⌋ (3
+    classes: y = 0, and y = 1 by ⌊t/2⌋ mod 2; 8 conditions:
+    4y + ⌊t/2⌋ mod 4), so part of their structure decodes. Each step's launches are counted;
+    the first batch and the replay must launch each kernel as predicted.
+    Results are held against the direct ``core`` / ``rsa`` calls on the
+    engine's plan, the permutation nulls against ``core.permutation`` of
+    the same seed (at one chunk of 1,024, the engine's width: bit for bit),
+    and a ``PlanStore`` round trip warm-boots a second engine with zero
+    builds and bit-identical decision values. The four kernels of the path
+    are held against their plain versions at the bucket-padded shapes."""
+    import dataclasses as dc
+    import tempfile
+
+    from repro_torch.core import fastcv, metrics, multiclass, multidim, permutation, tuning
+    from repro_torch.kernels.fold_eval.ops import fold_eval
+    from repro_torch.kernels.fold_eval.ref import fold_eval_ref
+    from repro_torch.kernels.foldsolve.ops import foldsolve
+    from repro_torch.kernels.foldsolve.ref import foldsolve_ref
+    from repro_torch.kernels.gram.ops import gram
+    from repro_torch.kernels.gram.ref import gram_ref
+    from repro_torch.kernels.hat_apply.ops import hat_errors
+    from repro_torch.kernels.hat_apply.ref import hat_apply_ref
+    from repro_torch.rsa import compare as rsa_compare
+    from repro_torch.rsa import rdm as rsa_rdm
+    from repro_torch.serve import (CVEngine, DatasetSpec, EngineConfig, PlanStore, Workload,
+                                   run_workloads)
+
+    dev = x.device
+    n, p = x.shape
+    idx = torch.arange(n, device=dev)
+    y01 = ds.y.to(dev)
+    yc3 = torch.where(y01 == 0, 0, 1 + (idx // 2) % 2).long()     # y = trial mod 2
+    y8 = (4 * y01 + (idx // 2) % 4).long()
+    c8 = RSA_CONDITIONS
+    models = torch.stack([rsa_rdm.ring_rdm(c8, device=dev),
+                          (torch.arange(c8, device=dev)[:, None] // 4
+                           != torch.arange(c8, device=dev)[None, :] // 4).double()
+                          ]).to(x.dtype)                                # (2, 8, 8) f32
+    xs = ds.epochs.permute(2, 0, 1).contiguous()                       # (301, 787, 380) f32
+
+    engine = CVEngine(EngineConfig(device="cuda"))
+    compiles0 = engine.compile_count()
+    reset_counts()
+    handle, t_register = timed(lambda: engine.register(x, folds, lam))
+    warm_tasks = ("binary", "ridge", "multiclass", "permutation")
+
+    def warm():
+        # warmup's num_classes serves both its multiclass and its RSA tasks;
+        # this traffic has 3 classes and 8 conditions, so two calls
+        a = engine.warmup(handle, tasks=warm_tasks, num_classes=MC_CLASSES, pin=True)
+        b = engine.warmup(handle, tasks=("rsa",), num_classes=c8, num_model_rdms=2,
+                          dissimilarity="contrast", pin=True)
+        return a, b
+
+    (w_a, w_b), t_warm = timed(warm)
+    launches_warm, shapes_warm = counts(), shape_counts()
+    plans_after_warm = engine.plans_built
+    batch = [
+        ("binary_cv", Workload(kind="cv", dataset=handle, y=y)),
+        ("ridge_cv", Workload(kind="cv", dataset=handle, y=y, estimator="ridge")),
+        ("multiclass_cv", Workload(kind="cv", dataset=handle, y=yc3, estimator="multiclass",
+                                   num_classes=MC_CLASSES)),
+        ("binary_permutation", Workload(kind="permutation", dataset=handle, y=y,
+                                        n_perm=N_PERM, seed=SEED)),
+        ("multiclass_permutation", Workload(kind="permutation", dataset=handle, y=yc3,
+                                            estimator="multiclass", num_classes=MC_CLASSES,
+                                            n_perm=N_PERM, seed=SEED)),
+        ("rsa", Workload(kind="rsa", dataset=handle, y=y8, num_classes=c8,
+                         dissimilarity="contrast", model_rdms=models, n_perm=N_PERM,
+                         seed=SEED)),
+        ("tune", Workload(kind="tune", x=x, y=y)),
+        ("grid", Workload(kind="grid", dataset=DatasetSpec(None, folds, grid_lam), xs=xs, y=y)),
+    ]
+    names = [k for k, _ in batch]
+    work = [w for _, w in batch]
+    compiles_before = engine.compile_count()
+
+    def per_kind(responses):
+        return {k: sum(r.timings.values()) for k, r in zip(names, responses)}
+
+    engine.enable_tracing()
+    reset_counts()
+    first, t_first = timed(lambda: run_workloads(engine, work))
+    launches_first, shapes_first = counts(), shape_counts()
+    cold = per_kind(first)
+    reset_counts()
+    (upd,), t_update = timed(lambda: run_workloads(
+        engine, [Workload(kind="update", dataset=handle, x=x_more)]))
+    launches_update, shapes_update = counts(), shape_counts()
+    reset_counts()
+    replay, t_replay_traced = timed(lambda: run_workloads(engine, work))
+    launches_replay, shapes_replay = counts(), shape_counts()
+    serve_shapes = shapes_warm + shapes_first + shapes_update + shapes_replay
+    warm_kind = per_kind(replay)
+    engine.disable_tracing()
+    replays = [timed(lambda: run_workloads(engine, work)) for _ in range(REPLAYS)]
+    replay2 = replays[0][0]
+    t_replays = [t for _, t in replays]
+    t_replay = statistics.median(t_replays)
+    # where a warm batch's time goes: the device-busy ms of each profiled
+    # replay (torch.profiler, union of its device intervals) against the same
+    # replay's span on the device, and the host seconds of the permutation
+    # draws alone (each permutation test and the RSA null draw 1,024 rows,
+    # one generator a row)
+    profiled = device_calls(lambda: run_workloads(engine, work), reps=REPLAYS, warmup=0)
+    _, t_draws = timed(lambda: permutation.permutation_indices(SEED, n, 1024, device=dev))
+    _, t_draws8 = timed(lambda: permutation.permutation_indices(SEED, c8, 1024, device=dev))
+    compiles_after = engine.compile_count()
+    stats = engine.stats()
+
+    # -- the results against the direct core / rsa calls on the same plan ------
+    _, plan = engine.resolve(handle)
+    r = dict(zip(names, first))
+    direct = {
+        "binary_cv": fastcv.binary_dvals(plan, y),
+        "ridge_cv": fastcv.cv_errors(dc.replace(plan, h_tr_te=None), y)[0],
+        "rsa": rsa_rdm.pair_dissimilarities(
+            plan, rsa_rdm.pair_contrast_columns(y8, c8, plan.h.dtype), dissimilarity="contrast"),
+    }
+    got = {"binary_cv": r["binary_cv"].values, "ridge_cv": r["ridge_cv"].values,
+           "rsa": r["rsa"].pair_values}
+    value_checks = {}
+    for k in direct:
+        err, scale = rel_err(got[k], direct[k])
+        value_checks[k] = {"max_abs_err": err, "scale": scale, "tol": TOL[torch.float32],
+                           "ok": err <= TOL[torch.float32] * scale}
+    mc_direct = multiclass.batch_predict(plan, yc3[None, :], MC_CLASSES)[0]
+    value_checks["multiclass_cv"] = {"mismatches": int((r["multiclass_cv"].values
+                                                         != mc_direct).sum()),
+                                     "ok": torch.equal(r["multiclass_cv"].values, mc_direct)}
+    # model scoring and its null on the engine's own RDM (ranks of two RDMs
+    # within the f32 pin of each other may still order differently)
+    emp = r["rsa"].rdm
+    value_checks["rsa_rdm"] = {"equals_pair_values": torch.equal(
+        emp, rsa_rdm.rdm_from_pair_values(r["rsa"].pair_values, c8))}
+    value_checks["rsa_rdm"]["ok"] = value_checks["rsa_rdm"]["equals_pair_values"]
+    sc_direct = rsa_compare.compare_rdms(emp, models, "spearman")
+    null_direct = rsa_compare.permutation_null(
+        emp, models, permutation.permutation_indices(SEED, c8, N_PERM, device=dev), "spearman")
+    for k, a, b in (("rsa_scores", r["rsa"].model_scores, sc_direct),
+                    ("rsa_null", r["rsa"].null, null_direct)):
+        err, scale = rel_err(a, b)
+        value_checks[k] = {"max_abs_err": err, "scale": scale, "tol": TOL[torch.float32],
+                           "ok": err <= TOL[torch.float32] * scale and a.shape == b.shape}
+    tune_direct = tuning.tune_ridge(x, y)
+    err, scale = rel_err(r["tune"].result.scores, tune_direct.scores)
+    value_checks["tune"] = {"max_abs_err": err, "scale": scale, "tol": TOL[torch.float32],
+                            "ok": err <= TOL[torch.float32] * scale}
+    grid_direct = multidim.cv_grid(xs, y, folds, grid_lam)
+    value_checks["grid"] = {"ok": torch.equal(r["grid"].accuracies, grid_direct),
+                            "differ": int((r["grid"].accuracies != grid_direct).sum())}
+    # the nulls: core.permutation on the same seed, one chunk of the bucket
+    # width (1,024 draws; the engine draws the same prefix-stable rows)
+    t_gen = 1024
+    core_bin = permutation.analytical_permutation_binary(x, y, folds, lam, t_gen, SEED,
+                                                         chunk=t_gen)
+    core_mc = permutation.analytical_permutation_multiclass(x, yc3, folds, MC_CLASSES, lam,
+                                                            t_gen, SEED, chunk=t_gen)
+    for k, core in (("binary_permutation", core_bin), ("multiclass_permutation", core_mc)):
+        resp = r[k]
+        p_core = permutation.p_value(core.observed, core.null[:N_PERM])
+        value_checks[k] = {
+            "null_equal": torch.equal(resp.null, core.null[:N_PERM]),
+            "observed_equal": torch.equal(resp.observed, core.observed),
+            "p": float(resp.p), "p_core": float(p_core), "observed": float(resp.observed)}
+        value_checks[k]["ok"] = (value_checks[k]["null_equal"]
+                                 and value_checks[k]["observed_equal"]
+                                 and float(resp.p) == float(p_core))
+    same_replay = all(
+        torch.equal(getattr(a, f), getattr(b, f))
+        for a, b in zip(first, replay2)
+        for f in ("values", "null", "rdm", "accuracies") if getattr(a, f, None) is not None)
+
+    # -- the kernels at the serve path's shapes against their plain versions ---
+    te = plan.te_idx
+    h_te = plan.h[te[:, :, None], te[:, None, :]]
+    perms = permutation.permutation_indices(SEED, n, t_gen, device=dev)
+    y_null = y[perms].T.contiguous()                                    # (787, 1024)
+    y1h = multiclass.onehot(yc3[perms], MC_CLASSES, dtype=x.dtype)      # (1024, 787, 3)
+    y_mc = y1h.permute(1, 0, 2).reshape(n, t_gen * MC_CLASSES).contiguous()   # (787, 3072)
+    cols8 = rsa_rdm.pair_contrast_columns(y8, c8, x.dtype)
+    y_rsa = torch.cat([cols8, cols8.new_zeros(n, 32 - cols8.shape[1])], 1)    # (787, 32)
+    y1 = y[:, None].contiguous()
+    xc = x - x.mean(dim=0, keepdim=True)
+    k_te, m_te = te.shape
+    shapes = {}
+    kernel_checks = []
+    for tag, yy in (("binary null B=1024", y_null), ("3-class null block B=3072", y_mc),
+                    ("RSA contrasts B=32 (28 padded)", y_rsa)):
+        e = hat_errors(plan.h, yy)
+        err_h = rel_err(e, hat_apply_ref(plan.h, yy))
+        e_te = e[te]
+        err_f = rel_err(foldsolve(h_te, e_te, jitter=None), foldsolve_ref(h_te, e_te))
+        kernel_checks += [{"kernel": "hat_apply", "case": f"serve {tag}", "max_abs_err": err_h[0],
+                           "scale": err_h[1], "ok": err_h[0] <= TOL[torch.float32] * err_h[1]},
+                          {"kernel": "foldsolve", "case": f"serve {tag}", "max_abs_err": err_f[0],
+                           "scale": err_f[1], "ok": err_f[0] <= TOL[torch.float32] * err_f[1]}]
+        # the serve path's launches at this shape (warm-up, first batch,
+        # update, replay), from the per-shape counts
+        b_ = yy.shape[1]
+        shapes[tag] = {"y": yy, "e_te": e_te, "hat_apply_err": err_h[0],
+                       "foldsolve_err": err_f[0], "launches": {
+                           "hat_apply": sum(v for (kn, a), v in serve_shapes.items()
+                                            if kn == "hat_apply" and a[:2] == (n, b_)),
+                           "foldsolve": sum(v for (kn, a), v in serve_shapes.items()
+                                            if kn == "foldsolve"
+                                            and a[:3] == (k_te, m_te, b_))}}
+    err_g = rel_err(gram(xc), gram_ref(xc))
+    err_e = rel_err(fold_eval(plan.h[te], h_te, y1, y1[te], jitter=None),
+                    fold_eval_ref(plan.h[te], h_te, y1, y1[te])[0])
+    kernel_checks += [
+        {"kernel": "gram", "case": f"serve: plan build and tune X ({n}, {p}) f32",
+         "max_abs_err": err_g[0], "scale": err_g[1],
+         "ok": err_g[0] <= TOL[torch.float32] * err_g[1]},
+        {"kernel": "fold_eval", "case": "serve: the ridge group, bucket 1",
+         "max_abs_err": err_e[0], "scale": err_e[1],
+         "ok": err_e[0] <= TOL[torch.float32] * err_e[1]}]
+
+    # -- the store tier: save, then a second engine on the store ---------------
+    root = Path(__file__).resolve().parent
+    with tempfile.TemporaryDirectory(prefix=".chip_smoke_store-", dir=root) as store_dir:
+        store = PlanStore(store_dir, device=dev)
+        _, t_save = timed(lambda: store.save(handle.key, plan))
+        engine2 = CVEngine(EngineConfig(device="cuda", plan_store=store_dir))
+        handle2 = engine2.register(x, folds, lam)
+        (warm_boot,), t_load = timed(lambda: run_workloads(
+            engine2, [Workload(kind="cv", dataset=handle2, y=y)]))
+        store_check = {"plans_built": engine2.plans_built,
+                       "store_hits": engine2.stats()["store_hits"],
+                       "bit_equal": torch.equal(warm_boot.values, r["binary_cv"].values),
+                       "entry_bytes": store.total_bytes()}
+        del engine2
+    _, t_rebuild = timed(lambda: fastcv.prepare(x, folds, lam))
+    store_check.update(seconds={"save": t_save, "load_and_eval": t_load, "rebuild": t_rebuild})
+    store_check["ok"] = (store_check["plans_built"] == 0 and store_check["store_hits"] == 1
+                         and store_check["bit_equal"])
+
+    want_batch = {"gram": 1, "hat_apply": 308, "foldsolve": 308, "fold_eval": 1}
+    want_replay = {"gram": 1, "hat_apply": 307, "foldsolve": 307, "fold_eval": 1}
+    want_warm = {"gram": 1, "hat_apply": 57, "foldsolve": 57, "fold_eval": 11}
+    strip = lambda d: {k: v for k, v in d.items() if k != "calls"}
+    out = {"phase": "serve", "N": n, "P": p, "K": folds.k, "m": folds.test_size,
+           "dtype": "float32", "lam": lam, "grid_lam": grid_lam, "workloads": names,
+           "n_perm": N_PERM, "perm_bucket": t_gen, "rsa_conditions": c8, "model_rdms": 2,
+           "seconds": {"register": t_register, "warmup": t_warm, "first_batch": t_first,
+                       "update": t_update, "replay_traced": t_replay_traced,
+                       "replay": t_replay},
+           "seconds_per_kind": {"cold": cold, "warm": warm_kind},
+           "replay_seconds": t_replays,
+           "warm_workloads_per_s": len(work) / t_replay,
+           "profiled_replays_ms": (None if profiled is None
+                                   else [{"busy": b, "span": w} for b, w in profiled]),
+           "replay_device_busy_ms": (None if profiled is None
+                                     else statistics.median(b for b, _ in profiled)),
+           "replay_device_idle_share": (None if profiled is None
+                                        else statistics.median(1.0 - b / w
+                                                               for b, w in profiled)),
+           "draw_seconds": {"1024 x 787": t_draws, "1024 x 8": t_draws8},
+           "launches": {"warmup": launches_warm, "first_batch": launches_first,
+                        "update": launches_update, "replay": launches_replay},
+           "predicted_launches": {"warmup": want_warm, "first_batch": want_batch,
+                                  "update": {}, "replay": want_replay},
+           "compile_count": {"engine_start": compiles0, "after_warmup": compiles_before,
+                             "after_traffic": compiles_after,
+                             "warmup_summaries": [w_a["compiles"], w_b["compiles"]]},
+           "plans_built": {"after_warmup": plans_after_warm, "end": stats["plans_built"]},
+           "plans_updated": stats["plans_updated"], "update_version": upd.version,
+           "update_n": upd.handle.n, "replay_equals_first": same_replay,
+           "launches_by_shape": {tag: sh["launches"] for tag, sh in shapes.items()},
+           "checks": value_checks, "kernel_checks": kernel_checks, "store": store_check,
+           "accuracy": float(r["binary_cv"].score), "multiclass_accuracy":
+               float(r["multiclass_cv"].score),
+           "perm_p": {"binary": float(r["binary_permutation"].p),
+                      "multiclass": float(r["multiclass_permutation"].p)},
+           "rsa_scores": r["rsa"].model_scores.tolist(), "rsa_p": r["rsa"].p.tolist(),
+           "cache": {k: stats[k] for k in ("hits", "misses", "pinned", "bytes_in_use")}}
+    emit(out)
+    print(f"serve: register {t_register:.4f} s, warm-up {t_warm:.4f} s, first batch "
+          f"{t_first:.4f} s, replay {t_replay:.4f} s ({len(work) / t_replay:.2f} workloads/s); "
+          f"store save {t_save:.4f} s, load {t_load:.4f} s, rebuild {t_rebuild:.4f} s; "
+          f"launches first batch {strip(launches_first)}, replay {strip(launches_replay)}",
+          flush=True)
+    if stats["plans_built"] != 1 or plans_after_warm != 1 or stats["plans_updated"] != 1:
+        fail(f"serve: plans_built {stats['plans_built']} (want 1), plans_updated "
+             f"{stats['plans_updated']} (want 1)")
+    if compiles_after != compiles_before:
+        fail(f"serve: compile_count moved from {compiles_before} to {compiles_after} "
+             "over warmed traffic")
+    bad = [k for k, v in value_checks.items() if not v["ok"]]
+    if bad:
+        fail(f"serve: results disagree with the direct calls: {bad}")
+    bad = [c["case"] for c in kernel_checks if not c["ok"]]
+    if bad:
+        fail(f"serve: kernels disagree with their plain versions at {bad}")
+    if not store_check["ok"]:
+        fail(f"serve: the store round trip failed: {store_check}")
+    if not same_replay:
+        fail("serve: the untraced replay differs from the first batch")
+    unlaunched = [(tag, k) for tag, sh in shapes.items() for k, v in sh["launches"].items()
+                  if v <= 0]
+    if unlaunched:
+        fail(f"serve: no launch at the bucket-padded shapes {unlaunched}")
+    expect_exact("serve warm-up", launches_warm, want_warm)
+    expect_exact("serve first batch", launches_first, want_batch)
+    expect_exact("serve update", launches_update, {})
+    expect_exact("serve replay", launches_replay, want_replay)
+    for resp in first:
+        for f in ("values", "null", "rdm", "accuracies", "score"):
+            v = getattr(resp, f, None)
+            if v is not None and not bool(torch.isfinite(v.double()).all()):
+                fail(f"serve: non-finite {f} in a {type(resp).__name__}")
+    launches = launch_sum(launch_sum(launch_sum(launches_warm, launches_first),
+                                     launches_update), launches_replay)
+    return {"launches": launches, "first_batch": launches_first, "shapes": shapes,
+            "plan": plan, "h_te": h_te}
 
 
 def lm_serve_phase(dev):
@@ -1381,6 +1742,7 @@ def main() -> None:
     y_more = (1 - 2 * ds_more.y[N_TRIALS:]).to(x.dtype)
     del ds_more
     upd = update_phase(x, x64, y, lam, x_more, y_more)
+    srv = serve_phase(ds, x, y, folds, lam, md["lam"], x_more)
     del x_more
 
     # -- 7. the LLM substrate: serving and layer probes at gemma2-2b width -----
@@ -1747,7 +2109,8 @@ def main() -> None:
     ]
     by_path = {"binary": launches, "multiclass": launches_mc, "rsa": launches_rsa,
                "multidim": md["launches"], "tune": tune["launches"], "update": upd["launches"],
-               "lm_serve": launches_serve, "lm_probe": launches_probe}
+               "serve": srv["launches"], "lm_serve": launches_serve,
+               "lm_probe": launches_probe}
     # the new paths' shapes (launches: the path that runs the shape; the
     # fold_eval LOO rows run only in the tune phase's f64 check)
     km_, mm_ = te_md.shape
@@ -1784,6 +2147,35 @@ def main() -> None:
             "launches": tune["check_launches"]["fold_eval"] if dt == f64 else 0,
             "launches_note": "the tune phase's check (analytical_cv on LOO folds, f64)",
             "tol": TOL[dt]} for dt in (f32, f64)]}
+    # the serve path's bucket-padded shapes on the engine's plan: the binary
+    # null (B = 1,024 in one launch), the 3-class null's indicator block
+    # (1,024 · 3 columns) and the RSA contrasts (28 padded to 32); launches:
+    # the serve path's count at the shape
+    h_sv, hb_sv = srv["plan"].h, srv["h_te"]
+    te_sv = srv["plan"].te_idx
+    ks_, ms_ = te_sv.shape
+    eye_sv = torch.eye(ms_, device=dev).expand(ks_, ms_, ms_)
+    for tag, sh in srv["shapes"].items():
+        ysv, esv = sh["y"], sh["e_te"]
+        bsv = ysv.shape[1]
+        new_rows["hat_apply"].append({
+            "kernel": lambda ysv=ysv: hat_errors(h_sv, ysv),
+            "plain": lambda ysv=ysv: hat_apply_ref(h_sv, ysv),
+            "library": lambda ysv=ysv: torch.addmm(ysv, h_sv, ysv, alpha=-1.0),
+            "bytes": (n * n + 2 * n * bsv) * f4, "flops": 2 * n * n * bsv, "dtype": "tf32",
+            "shape": f"serve {tag}: H ({n}, {n}), Y ({n}, {bsv}) f32",
+            "max_abs_err": sh["hat_apply_err"], "launches": sh["launches"]["hat_apply"],
+            "launches_note": SERVE_SHAPE_NOTE, "tol": TOL[f32]})
+        new_rows["foldsolve"].append({
+            "kernel": lambda esv=esv: foldsolve(hb_sv, esv, jitter=None),
+            "on_path": lambda esv=esv: foldsolve(hb_sv, esv),
+            "plain": lambda esv=esv: foldsolve_ref(hb_sv, esv),
+            "library": lambda esv=esv: torch.linalg.solve(eye_sv - hb_sv, esv),
+            "bytes": (ks_ * ms_ * ms_ + 2 * ks_ * ms_ * bsv) * f4,
+            "flops": ks_ * (2 * ms_ ** 3 / 3 + 2 * ms_ * ms_ * bsv),
+            "shape": f"serve {tag}: h_te ({ks_}, {ms_}, {ms_}), e ({ks_}, {ms_}, {bsv}) f32",
+            "max_abs_err": sh["foldsolve_err"], "launches": sh["launches"]["foldsolve"],
+            "launches_note": SERVE_SHAPE_NOTE, "tol": TOL[f32]})
 
     # the lm_probe path's own f64 shapes: 384 sequences of d_model 2,304
     # features, K = 6 folds of 64, permutation chunks of 64 labels (random

@@ -10,11 +10,13 @@ falls back to the plain versions.
 
 Every C entry point takes device pointers, sizes and the CUDA stream, and
 returns ``cudaGetLastError()`` right after its launch; :func:`launch`
-raises if that is not 0 and counts the launch in :data:`LAUNCHES`.
+raises if that is not 0 and counts the launch in :data:`LAUNCHES` and, by
+shape, in :data:`LAUNCH_SHAPES`.
 """
 
 from __future__ import annotations
 
+import collections
 import ctypes
 import hashlib
 import os
@@ -26,7 +28,7 @@ from typing import Iterable
 
 import torch
 
-__all__ = ["KERNELS", "ARGTYPES", "LAUNCHES", "reset_launches", "source_hash",
+__all__ = ["KERNELS", "ARGTYPES", "LAUNCHES", "LAUNCH_SHAPES", "reset_launches", "source_hash",
            "build", "load", "launch", "find_nvcc"]
 
 PACKAGE = Path(__file__).resolve().parent.parent
@@ -69,6 +71,9 @@ ARGTYPES = {
 
 #: Kernel launches per kernel since the last :func:`reset_launches`.
 LAUNCHES = {name: 0 for name in KERNELS}
+#: The same launches by shape: ``(kernel, the entry point's int arguments)``,
+#: e.g. ``("hat_apply", (n, b, splits))``.
+LAUNCH_SHAPES: collections.Counter = collections.Counter()
 
 _lock = threading.Lock()
 _libs: dict = {}
@@ -77,6 +82,7 @@ _libs: dict = {}
 def reset_launches() -> None:
     for name in LAUNCHES:
         LAUNCHES[name] = 0
+    LAUNCH_SHAPES.clear()
 
 
 def source_hash() -> str:
@@ -159,6 +165,7 @@ def launch(kernel: str, symbol: str, device: torch.device, *args) -> None:
     runs on the current device; another device is made current around it."""
     lib = _libs.get(kernel) or load(kernel)
     fn = getattr(lib, symbol)
+    shape = tuple(a for a, t in zip(args, fn.argtypes) if t is _I)
     args = [a.data_ptr() if isinstance(a, torch.Tensor) else a for a in args]
     # the raw handle of the device's current stream, without building a
     # torch.cuda.Stream object on every launch
@@ -172,3 +179,4 @@ def launch(kernel: str, symbol: str, device: torch.device, *args) -> None:
         msg = lib.repro_cuda_error_string(err).decode()
         raise RuntimeError(f"{symbol}: CUDA launch failed with error {err} ({msg})")
     LAUNCHES[kernel] += 1
+    LAUNCH_SHAPES[kernel, shape] += 1

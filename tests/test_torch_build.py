@@ -11,9 +11,11 @@ import shutil
 import stat
 import subprocess
 import sys
+import types
 from pathlib import Path
 
 import pytest
+import torch
 
 from repro_torch.kernels import _build
 
@@ -43,10 +45,12 @@ def test_the_import_check_covers_every_subpackage():
     """The check above reaches the LLM substrate's configs, models and
     launchers as well as the analysis packages and the kernels."""
     subpackages = {p.relative_to(PORT).parts[0] for p in _port_files() if p.is_relative_to(PORT)}
-    assert {"configs", "models", "launch", "core", "rsa", "data", "kernels"} <= subpackages
+    assert {"configs", "models", "launch", "core", "rsa", "data", "kernels",
+            "serve"} <= subpackages
     names = {p.relative_to(PORT).as_posix() for p in _port_files() if p.is_relative_to(PORT)}
     assert {"launch/serve.py", "launch/probe.py", "models/convert.py",
-            "kernels/flash_attention/ops.py", "configs/gemma2_2b.py"} <= names
+            "kernels/flash_attention/ops.py", "configs/gemma2_2b.py",
+            "serve/engine.py", "serve/workload.py"} <= names
 
 
 def test_importing_the_whole_port_loads_no_jax():
@@ -165,8 +169,33 @@ def test_build_runs_once_per_source_and_hash(monkeypatch, tmp_path):
 
 def test_reset_launches():
     _build.LAUNCHES["gram"] += 3
+    _build.LAUNCH_SHAPES["gram", (8, 16, 1)] += 3
     _build.reset_launches()
-    assert set(_build.LAUNCHES.values()) == {0}
+    assert set(_build.LAUNCHES.values()) == {0} and not _build.LAUNCH_SHAPES
+
+
+def test_launch_counts_each_launch_by_shape(monkeypatch):
+    # a stand-in for libhat_apply's entry point: launch passes the pointers,
+    # the sizes and the stream, and counts the launch under its int arguments
+    calls = []
+
+    def entry(*args):
+        calls.append(args)
+        return 0
+
+    entry.argtypes = list(_build.ARGTYPES["hat_apply"]["hat_apply_f32"])
+    monkeypatch.setitem(_build._libs, "hat_apply", types.SimpleNamespace(hat_apply_f32=entry))
+    monkeypatch.setattr(torch._C, "_cuda_getCurrentRawStream", lambda index: 7, raising=False)
+    monkeypatch.setattr(torch.cuda, "current_device", lambda: 0)
+    _build.reset_launches()
+    dev = torch.device("cuda", 0)
+    for b in (1024, 1024, 32):
+        _build.launch("hat_apply", "hat_apply_f32", dev, 16, 32, None, 48, 787, b, 3)
+    assert calls[0] == (16, 32, None, 48, 787, 1024, 3, 7)
+    assert _build.LAUNCHES["hat_apply"] == 3
+    assert dict(_build.LAUNCH_SHAPES) == {("hat_apply", (787, 1024, 3)): 2,
+                                          ("hat_apply", (787, 32, 3)): 1}
+    _build.reset_launches()
 
 
 # ----------------------------------------------------------- chip_smoke ----

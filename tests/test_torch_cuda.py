@@ -596,3 +596,130 @@ def test_smoke_model_on_the_card_equals_the_cpu(gen):
     for t in range(4):
         M.decode_step(model_gpu, toks[:, t:t + 1].cuda(), t, caches, cfg)
     assert _build.LAUNCHES["flash_attention"] == before
+
+
+# ---------------------------------------------------------------------------
+# The serving core on the card
+# ---------------------------------------------------------------------------
+
+
+def _serve_problem(n=96, p=300, k=6):
+    g = torch.Generator().manual_seed(3)
+    x = torch.randn(n, p, generator=g, dtype=torch.float64)
+    y = torch.where(torch.arange(n) % 2 == 0, -1.0, 1.0).double()
+    x[y > 0, :4] += 0.8
+    yc = torch.arange(n) % 3
+    return x, y, yc, k
+
+
+@pytest.mark.parametrize("dtype,tol", [(torch.float32, 1e-4), (torch.float64, 1e-9)])
+def test_engine_on_the_card_equals_its_plain_route(gen, dtype, tol):
+    """One batch of every CV kind through a CUDA engine (the kernels)
+    against a CPU engine (the plain versions) on the same plan, with the
+    CUDA launches counted. (f32: decision values pass hat_apply, foldsolve
+    and the bias adjust, each rounding on its own; the card's f32 route is
+    held end to end at 1e-4, as in the tests above.)"""
+    from repro_torch.serve import CVEngine, EngineConfig, Workload, run_workloads
+
+    x, y, yc, k = _serve_problem()
+    cpu = CVEngine(EngineConfig(device="cpu", fused=True))
+    card = CVEngine(EngineConfig(device="cuda"))
+    assert card.device.type == "cuda" and card._fused
+    h_cpu = cpu.register(x.to(dtype), folds.kfold(len(x), k, seed=0, device="cpu"), 5.0)
+    h_card = card.register(x.to(dtype).cuda(), folds.kfold(len(x), k, seed=0, device="cuda"),
+                           5.0)
+    assert h_cpu.key == h_card.key
+    _, plan = cpu.resolve(h_cpu)
+    card.cache.put(h_card.key, fastcv.CVPlan(*(None if t is None else t.cuda() for t in (
+        plan.h, plan.te_idx, plan.tr_idx, plan.chol_ih, plan.h_tr_te))))
+    work = lambda h: [Workload(kind="cv", dataset=h, y=y),
+                      Workload(kind="cv", dataset=h, y=torch.stack([y, -y, y], 1)),
+                      Workload(kind="cv", dataset=h, y=y, estimator="ridge"),
+                      Workload(kind="cv", dataset=h, y=yc, estimator="multiclass",
+                               num_classes=3)]
+    before = dict(_build.LAUNCHES)
+    got = run_workloads(card, work(h_card))
+    torch.cuda.synchronize()
+    assert all(_build.LAUNCHES[n] > before[n] for n in ("hat_apply", "foldsolve", "fold_eval"))
+    assert _build.LAUNCHES["gram"] == before["gram"]              # the plan was given
+    want = run_workloads(cpu, work(h_cpu))
+    for a, b in zip(got[:3], want[:3]):
+        assert a.values.device.type == "cuda"
+        _close(a.values.cpu(), b.values, tol)
+    assert torch.equal(got[3].values.cpu(), want[3].values)
+    assert card.plans_built == 0
+
+
+@pytest.mark.parametrize("kind", ["binary", "multiclass"])
+def test_bucket_1024_null_on_the_card_equals_plain(gen, kind):
+    """A permutation null at the bucket of T = 1,000 (one padded batch of
+    1,024: hat_apply and foldsolve once each) against the same draws on
+    the CPU's plain versions, on one plan."""
+    from repro_torch.core import permutation
+    from repro_torch.serve import CVEngine, EngineConfig
+
+    x, y, yc, k = _serve_problem()
+    cpu = CVEngine(EngineConfig(device="cpu", fused=True))
+    card = CVEngine(EngineConfig(device="cuda"))
+    _, plan = cpu.plan(x, folds.kfold(len(x), k, seed=0, device="cpu"), 5.0)
+    plan_card = fastcv.CVPlan(*(t.cuda() for t in (plan.h, plan.te_idx, plan.tr_idx,
+                                                   plan.chol_ih, plan.h_tr_te)))
+    perms = permutation.permutation_indices(0, len(x), 1024, device="cuda")
+    labels = y if kind == "binary" else yc
+    before = dict(_build.LAUNCHES)
+    if kind == "binary":
+        got = card.null_binary(plan_card, labels.cuda(), perms[:1000])
+        want = cpu.null_binary(plan, labels, perms[:1000].cpu())
+    else:
+        got = card.null_multiclass(plan_card, labels.cuda(), perms[:1000], num_classes=3)
+        want = cpu.null_multiclass(plan, labels, perms[:1000].cpu(), num_classes=3)
+    torch.cuda.synchronize()
+    assert _build.LAUNCHES["hat_apply"] - before["hat_apply"] == 1
+    assert _build.LAUNCHES["foldsolve"] - before["foldsolve"] == 1
+    # f64 shares of hits: the two routes' decision values differ at ~1e-15,
+    # far inside any margin a hit could turn on
+    assert got.shape == (1000,) and torch.equal(got.cpu(), want)
+
+
+def test_plan_store_round_trip_on_the_card(gen, tmp_path):
+    from repro_torch.serve import CVEngine, EngineConfig, PlanStore, Workload, run_workloads
+
+    x, y, _, k = _serve_problem()
+    xc = x.float().cuda()
+    f = folds.kfold(len(x), k, seed=0, device="cuda")
+    first = CVEngine(EngineConfig(device="cuda", plan_store=str(tmp_path), save_plans=True))
+    (a,) = run_workloads(first, [Workload(kind="cv", dataset=first.register(xc, f, 5.0),
+                                          y=y)])
+    first.flush_store()
+    assert first.plans_built == 1 and first.stats()["store_writes"] == 1
+    second = CVEngine(EngineConfig(device="cuda", plan_store=str(tmp_path)))
+    (b,) = run_workloads(second, [Workload(kind="cv", dataset=second.register(xc, f, 5.0),
+                                           y=y)])
+    assert second.plans_built == 0 and second.stats()["store_hits"] == 1
+    assert b.values.device.type == "cuda" and torch.equal(a.values, b.values)
+    key = second.register(xc, f, 5.0).key
+    loaded = PlanStore(tmp_path, device="cuda").load(key)
+    assert loaded.h.device.type == "cuda" and loaded.h.dtype == torch.float32
+
+
+def test_default_engine_takes_the_card(gen):
+    from repro_torch.serve import CVEngine
+
+    engine = CVEngine()
+    assert engine.device.type == "cuda" and engine._fused
+    assert engine.store is None
+
+
+def test_tracer_waits_for_the_card_only_with_a_trace(gen, monkeypatch):
+    from repro_torch.serve.trace import Tracer
+
+    calls = []
+    real = torch.cuda.synchronize
+    monkeypatch.setattr(torch.cuda, "synchronize", lambda d=None: calls.append(d) or real(d))
+    tracer = Tracer(enabled=True)
+    x = torch.ones(4, device="cuda")
+    tracer.sync(x)
+    assert calls == []
+    with tracer.activate(tracer.trace()):
+        tracer.sync((x, (torch.ones(2), x)))
+    assert len(calls) == 1 and calls[0].type == "cuda"
