@@ -42,6 +42,17 @@ then four more on the same subject:
   ``update`` of 10 trials and a warm replay, each step's launches exact,
   the results against the direct ``core`` / ``rsa`` calls, and a
   ``PlanStore`` round trip with zero builds;
+* http: the serve edges on the serve phase's warm engine: ``EdgeThread`` on
+  127.0.0.1:0 and ``HTTPClient`` (the handle-carried kinds of the serve
+  batch over the wire equal to the same batch in process bit for bit, with
+  equal launch counts; a malformed entry answered per entry; an SSE stream
+  at chunk 1,024 equal to the monolithic null; an append of 10 trials over
+  the wire; ``/v1/metrics`` and ``/v1/trace``; ``compile_count`` flat), then
+  ``python -m repro_torch.launch.serve_cv --http 0`` as a process on the
+  card (cold boot with a plan store and recorded traffic, SIGTERM exit 0, a
+  warm reboot with 0 plan builds), a ``--async 8`` replay with 0
+  recompiles, and ``examples/torch/http_quickstart.py`` and
+  ``serve_quickstart.py`` on the card;
 
 and two paths of the LLM substrate at gemma2-2b's full width and depth
 (26 layers, d_model 2,304, 8/4 heads of 256, vocabulary 256,000, bf16,
@@ -117,7 +128,8 @@ for the kernel and for the library call. The f32 library calls must run
 full f32 (no TF32): the env line prints the two settings and the run
 fails otherwise.
 
-Each phase prints one JSON line. The line before the last is the card's
+Each phase prints one JSON line; the ``wall`` line gives the whole run's
+seconds. The line before the last is the card's
 name and power limit from nvidia-smi; the last line is
 ``{"ok": true, "device": {...}}``. Any failure exits non-zero before that
 line. Without a CUDA device, or without the package beside it, it fails.
@@ -1142,7 +1154,367 @@ def serve_phase(ds, x, y, folds, lam, grid_lam, x_more) -> dict:
     launches = launch_sum(launch_sum(launch_sum(launches_warm, launches_first),
                                      launches_update), launches_replay)
     return {"launches": launches, "first_batch": launches_first, "shapes": shapes,
-            "plan": plan, "h_te": h_te}
+            "plan": plan, "h_te": h_te, "engine": engine, "handle": handle,
+            "batch": dict(batch), "first": r, "update": upd}
+
+
+# the http phase: the serve edges over a socket and the serve_cv entry point
+HTTP_KINDS = ("binary_cv", "ridge_cv", "multiclass_cv", "binary_permutation",
+              "multiclass_permutation", "rsa")
+HTTP_CHUNK = 1024
+HTTP_TIMED = 5
+# across bucket widths on the card (hat_apply's split count follows B), f32
+# decision values agree to 1e-4 of scale end to end
+TOL_SERVE_EDGE = 1e-4
+BOOT_TIMEOUT = 240          # seconds to a serve_cv subprocess's "listening" line
+EXIT_TIMEOUT = 120          # seconds from SIGTERM to its exit
+REPLAY_TIMEOUT = 300        # the async replay run of serve_cv
+EXAMPLE_TIMEOUT = 180       # each example
+
+
+class _Proc:
+    """A subprocess whose merged output is read on a thread (so a wait for a
+    line can time out) and that is killed if still running at close()."""
+
+    def __init__(self, cmd, cwd, env):
+        import queue
+        import threading
+        self.t0 = time.perf_counter()
+        self.proc = subprocess.Popen(cmd, cwd=cwd, env=env, stdout=subprocess.PIPE,
+                                     stderr=subprocess.STDOUT, text=True, bufsize=1)
+        self.lines: list = []
+        self._q: "queue.Queue" = queue.Queue()
+        self._reader = threading.Thread(target=self._read, daemon=True)
+        self._reader.start()
+
+    def _read(self):
+        for line in self.proc.stdout:
+            self.lines.append(line)
+            self._q.put(line)
+        self._q.put(None)
+
+    def wait_for(self, pattern: str, timeout: float):
+        """(match, seconds since start) of the first line matching ``pattern``."""
+        import queue
+        deadline = time.monotonic() + timeout
+        while True:
+            try:
+                line = self._q.get(timeout=max(0.0, deadline - time.monotonic()))
+            except queue.Empty:
+                return None, None
+            if line is None:
+                return None, None
+            m = re.search(pattern, line)
+            if m:
+                return m, time.perf_counter() - self.t0
+
+    def finish(self, timeout: float):
+        """Exit code (None on timeout) after the process ends."""
+        try:
+            rc = self.proc.wait(timeout=timeout)
+        except subprocess.TimeoutExpired:
+            return None
+        self._reader.join(timeout=10)
+        return rc
+
+    def close(self):
+        if self.proc.poll() is None:
+            self.proc.kill()
+            self.proc.wait()
+
+    def tail(self, n: int = 12) -> str:
+        return "".join(self.lines[-n:])
+
+
+def http_phase(srv, y, x_more, y_more) -> dict:
+    """The serve edges (``repro_torch.serve.http``) on the serve phase's warm
+    engine and handle (787 × 76,000 f32, K = 10), then the
+    ``repro_torch.launch.serve_cv`` entry point as a process on the card.
+
+    In process, over a socket: ``EdgeThread`` on 127.0.0.1:0 and
+    ``HTTPClient``. The handle-carried kinds of the serve batch (binary,
+    ridge and 3-class CV, both T = 1,000 permutation tests, the 8-condition
+    RSA with its model null) go over the wire as one batch and in process as
+    the same batch: every decoded response equals its in-process one bit for
+    bit, and the two runs launch the same kernels as often; a malformed
+    entry in the batch answers a structured 400 while its siblings are
+    served; an SSE stream of the binary test at ``stream_chunk`` 1,024
+    concatenates to the monolithic null bit for bit; an append of 10 trials
+    over the wire yields the handle the in-process update yields, and a CV on
+    it agrees with the in-process CV; ``/v1/metrics`` parses and
+    ``/v1/trace`` names only ``STAGES``. Over the wire traffic
+    ``compile_count`` stays flat and no plan is built (the append is a rank-k
+    update). Then ``serve_cv --http 0 --data eeg --n 787`` boots cold with a
+    plan store and records its traffic, serves a CV and a permutation test
+    over HTTP, and shuts down on SIGTERM (exit 0); a second boot from the
+    store and the recorded traffic builds 0 plans; a replay run with
+    ``--async 8`` reports 0 recompiles; and ``examples/torch/http_quickstart``
+    and ``serve_quickstart`` run on the card."""
+    import os
+    import signal
+    import tempfile
+
+    from repro_torch.serve import EdgeThread, HTTPClient, Workload, run_workloads, stream_workload
+    from repro_torch.serve.http import assert_responses_equal, response_from_dict, response_to_dict
+    from repro_torch.serve.obs import METRICS
+    from repro_torch.serve.trace import STAGES
+
+    engine, handle, upd = srv["engine"], srv["handle"], srv["update"]
+    dicts = [srv["batch"][k].to_dict() for k in HTTP_KINDS]
+    fresh = lambda: [Workload.from_dict(d) for d in dicts]          # the wire's own inputs
+    total = None
+
+    def seg(fn):
+        """(fn's result, host seconds up to a synchronize, its launches); the
+        launches add to the phase's total."""
+        nonlocal total
+        reset_counts()
+        out, secs = timed(fn)
+        c = counts()
+        total = c if total is None else launch_sum(total, c)
+        return out, secs, c
+
+    def equal(got, want):
+        try:
+            for g, w in zip(got, want, strict=True):
+                assert_responses_equal(g, w)
+            return True
+        except AssertionError as e:
+            print(f"http: responses differ: {str(e)[:400]}", flush=True)
+            return False
+
+    # -- in process first: every launch shape the wire traffic will need -----
+    w_cv1 = lambda h: Workload(kind="cv", dataset=h, y=torch.cat([y, y_more]))
+    ref, _, l_inproc = seg(lambda: run_workloads(engine, fresh()))
+    inproc_events, _, l_inproc_stream = seg(lambda: list(stream_workload(
+        engine, fresh()[3], chunk=HTTP_CHUNK)))
+    (cv_v1,), _, _ = seg(lambda: run_workloads(engine, [w_cv1(upd.handle)]))
+    in_times = [seg(lambda: run_workloads(engine, fresh()))[1] for _ in range(HTTP_TIMED)]
+    # the codec alone, host clock: the batch's responses to JSON and back
+    # (response_to_dict copies each array to the host), and the request body
+    body, t_encode = timed(lambda: json.dumps({"results": [
+        {"ok": True, "response": response_to_dict(r)} for r in ref]}))
+    _, t_decode = timed(lambda: [response_from_dict(e["response"])
+                                 for e in json.loads(body)["results"]])
+    request_body = json.dumps({"workloads": dicts})
+    codec = {"encode_s": t_encode, "decode_s": t_decode, "response_mib": len(body) / 2 ** 20,
+             "request_mib": len(request_body) / 2 ** 20}
+    # what differs across bucket widths on the card: the binary null at
+    # chunk 64 (bucket 64) against the monolithic bucket 1,024, and the
+    # binary CV column alone (bucket 1) against inside a batch of 5 (bucket 8)
+    ev64, _, _ = seg(lambda: list(stream_workload(engine, fresh()[3], chunk=64)))
+    null64 = torch.cat([e.payload for e in ev64 if e.kind == "null"])
+    ys = torch.stack([y] + [torch.roll(y, s_) for s_ in (1, 2, 3, 5)], 1)
+    (cv5,), _, _ = seg(lambda: run_workloads(engine, [Workload(kind="cv", dataset=handle,
+                                                               y=ys)]))
+    err_cv, scale_cv = rel_err(cv5.values[..., 0], ref[0].values)
+    across = {"null_chunk64_vs_1024": {"differ": int((null64 != ref[3].null).sum()),
+                                       "max_abs_err": float((null64 - ref[3].null).abs().max())},
+              "cv_bucket8_vs_1": {"bit_equal": torch.equal(cv5.values[..., 0], ref[0].values),
+                                  "max_abs_err": err_cv, "scale": scale_cv,
+                                  "tol": TOL_SERVE_EDGE}}
+    compiles0, built0, updated0 = engine.compile_count(), engine.plans_built, engine.plans_updated
+
+    checks = {}
+    with EdgeThread(engine, stream_chunk=HTTP_CHUNK) as edge, HTTPClient(edge.url) as hc:
+        checks["healthz"] = hc.healthz() == {"status": "ok"}
+        listed = [d["handle"].key for d in hc.datasets()]
+        checks["handle_listed"] = handle.key in listed and upd.handle.key in listed
+        # the batch over the wire, with one malformed entry beside it
+        bad = dict(dicts[0], y={"__array__": [2.0] * handle.n, "dtype": "float64"})
+        out, t_wire_bad, l_wire = seg(lambda: hc._request(
+            "POST", "/v1/workloads", {"workloads": dicts + [bad]}))
+        entries = out["results"]
+        checks["malformed_entry"] = (not entries[-1]["ok"]
+                                     and entries[-1]["error"]["status"] == 400
+                                     and entries[-1]["error"]["type"] == "validation")
+        wire = [HTTPClient._entry(e, raise_errors=True) for e in entries[:-1]]
+        checks["wire_equals_in_process"] = equal(wire, ref)
+        checks["wire_launches_equal"] = l_wire == l_inproc
+        wire_times = []
+        for _ in range(HTTP_TIMED):
+            ws = fresh()
+            got, secs, _ = seg(lambda: hc.gather(ws))
+            wire_times.append(secs)
+            checks["wire_equals_in_process"] &= equal(got, ref)
+        # SSE: the binary permutation test at stream_chunk 1,024
+        events, marks = [], []
+
+        def stream():
+            t0 = time.perf_counter()
+            for ev in hc.stream(fresh()[3]):
+                events.append(ev)
+                marks.append(time.perf_counter() - t0)
+
+        _, t_stream, l_wire_stream = seg(stream)
+        t_first = next(t for ev, t in zip(events, marks) if ev.kind == "null")
+        chunks = [ev.payload for ev in events if ev.kind == "null"]
+        mono = ref[3].null.cpu()
+        checks["sse_equals_monolithic"] = (
+            [ev.kind for ev in events] == [ev.kind for ev in inproc_events]
+            and torch.equal(torch.cat(chunks), mono)
+            and torch.equal(events[-1].payload.null, mono)
+            and torch.equal(torch.cat([ev.payload for ev in inproc_events
+                                       if ev.kind == "null"]).cpu(), mono))
+        checks["sse_launches_equal"] = l_wire_stream == l_inproc_stream
+        # an append of 10 trials over the wire, then a CV on its handle
+        body_mb = len(json.dumps({"x": {"__array__": x_more.cpu().tolist(),
+                                        "dtype": "float32"}})) / 2 ** 20
+        h_new, t_append, l_append = seg(lambda: hc.append(handle, x_more))
+        (cv_wire,), _, _ = seg(lambda: hc.gather([w_cv1(h_new)]))
+        err, scale = rel_err(cv_wire.values, cv_v1.values.cpu())
+        checks["append_handle"] = (h_new.key == upd.handle.key
+                                   and h_new.n == handle.n + x_more.shape[0])
+        checks["append_cv"] = err <= TOL_UPDATE * scale
+        # the exposition routes
+        text = hc.metrics_text()
+        samples = [ln.rsplit(" ", 1) for ln in text.splitlines() if ln and not ln.startswith("#")]
+        names = {s[0].split("{")[0] for s in samples}
+        base = {re.sub(r"_(bucket|sum|count)$", "", nm) if nm not in METRICS else nm
+                for nm in names}
+        checks["metrics_parse"] = (bool(samples) and all(_is_float(v) for _, v in samples)
+                                   and base <= set(METRICS))
+        engine.enable_tracing()
+        seg(lambda: hc.gather(fresh()[:1]))
+        traced = hc.trace(8)
+        engine.disable_tracing()
+        span_names = set()
+
+        def walk(spans):
+            for sp in spans:
+                span_names.add(sp["name"])
+                walk(sp.get("children", []))
+
+        for tr in traced["traces"]:
+            walk(tr["spans"])
+        checks["trace_stages"] = bool(span_names) and span_names <= set(STAGES)
+        edge_stats = hc.stats()["edge"]
+    compiles1, built1, updated1 = engine.compile_count(), engine.plans_built, engine.plans_updated
+    checks["compile_count_flat"] = compiles1 == compiles0
+    checks["across_buckets_within_f32"] = (
+        across["cv_bucket8_vs_1"]["max_abs_err"] <= TOL_SERVE_EDGE * scale_cv)
+    checks["no_plan_built"] = built1 == built0 and updated1 == updated0 + 1
+    for resp in ref:
+        for f in ("values", "null", "rdm", "score", "p"):
+            v = getattr(resp, f, None)
+            if v is not None and not bool(torch.isfinite(v.double()).all()):
+                checks["finite"] = False
+    checks.setdefault("finite", True)
+
+    # -- the entry point: python -m repro_torch.launch.serve_cv ---------------
+    root = Path(__file__).resolve().parent
+    env = {**os.environ, "PYTHONPATH": str(root / "src") + os.pathsep
+           + os.environ.get("PYTHONPATH", "")}
+    cli = [sys.executable, "-m", "repro_torch.launch.serve_cv", "--data", "eeg",
+           "--n", str(N_TRIALS)]
+    n_eeg = N_TRIALS
+    y_eeg = torch.where(torch.arange(n_eeg) % 2 == 0, -1.0, 1.0).double()
+    eeg_batch = lambda h: [Workload(kind="cv", dataset=h, y=y_eeg),
+                           Workload(kind="permutation", dataset=h, y=y_eeg, n_perm=N_PERM,
+                                    seed=SEED)]
+    boots, procs = {}, []
+
+    def boot(tag, extra):
+        proc = _Proc(cli + ["--http", "0"] + extra, root, env)
+        procs.append(proc)
+        m, secs = proc.wait_for(r"listening on (http://\S+)", BOOT_TIMEOUT)
+        if m is None:
+            proc.close()
+            fail(f"http: serve_cv ({tag}) printed no listening line within {BOOT_TIMEOUT} s:\n"
+                 f"{proc.tail()}")
+        client = HTTPClient(m.group(1))
+        stats0 = client.stats()["engine"]
+        h = next(d["handle"] for d in client.datasets() if d["handle"].n == n_eeg)
+        out, t_batch = timed(lambda: client.gather(eeg_batch(h)))
+        stats1 = client.stats()["engine"]
+        client.close()
+        proc.proc.send_signal(signal.SIGTERM)
+        rc = proc.finish(EXIT_TIMEOUT)
+        shut = any("http edge shut down" in ln for ln in proc.lines)
+        boots[tag] = {"to_listening_s": secs, "batch_s": t_batch, "rc": rc,
+                      "shutdown_line": shut,
+                      "plans_built": {"after_warmup": stats0["plans_built"],
+                                      "after_batch": stats1["plans_built"]},
+                      "store_hits": stats1["store_hits"],
+                      "accuracy": float(out[0].score), "p": float(out[1].p)}
+        if rc != 0 or not shut:
+            fail(f"http: serve_cv ({tag}) did not shut down cleanly on SIGTERM (rc {rc}):\n"
+                 f"{proc.tail()}")
+
+    examples = {}
+    try:
+        with tempfile.TemporaryDirectory(prefix=".chip_smoke_store-", dir=root) as tmp:
+            store, traffic = os.path.join(tmp, "plans"), os.path.join(tmp, "traffic.json")
+            boot("cold", ["--warmup", "--pin", "--plan-store", store, "--save-plans",
+                          "--record-traffic", traffic])
+            boot("warm", ["--plan-store", store, "--warmup-from", traffic])
+        replay = _Proc(cli + ["--warmup", "--pin", "--async", "8"], root, env)
+        procs.append(replay)
+        rc = replay.finish(REPLAY_TIMEOUT)
+        text = "".join(replay.lines)
+        rec = {k: [int(v) for v in re.findall(rf"recompiles on {k} replay: (\d+)", text)]
+               for k in ("warm", "async")}
+        boots["async_replay"] = {"rc": rc, "recompiles": rec,
+                                 "seconds": time.perf_counter() - replay.t0}
+        if rc != 0 or rec != {"warm": [0], "async": [0]}:
+            fail(f"http: serve_cv --async 8 (rc {rc}) recompiles {rec}:\n{replay.tail()}")
+        for name in ("http_quickstart", "serve_quickstart"):
+            ex = _Proc([sys.executable, str(root / "examples" / "torch" / f"{name}.py")], root,
+                       env)
+            procs.append(ex)
+            rc = ex.finish(EXAMPLE_TIMEOUT)
+            examples[name] = {"rc": rc, "seconds": time.perf_counter() - ex.t0}
+            if rc != 0:
+                fail(f"http: examples/torch/{name}.py exited {rc}:\n{ex.tail()}")
+    finally:
+        for proc in procs:
+            proc.close()
+
+    out = {"phase": "http", "N": handle.n, "P": handle.p, "K": engine.dataset_record(
+               handle).folds.k, "workloads": list(HTTP_KINDS), "n_perm": N_PERM,
+           "stream_chunk": HTTP_CHUNK, "checks": checks,
+           "launches": {"in_process": l_inproc, "wire": l_wire,
+                        "in_process_stream": l_inproc_stream, "wire_stream": l_wire_stream,
+                        "append": l_append},
+           "seconds": {"wire_batch": wire_times, "wire_batch_median": statistics.median(
+                           wire_times), "in_process_batch": in_times,
+                       "in_process_batch_median": statistics.median(in_times),
+                       "wire_batch_with_malformed": t_wire_bad,
+                       "sse_first_chunk": t_first, "sse_whole": t_stream,
+                       "append": t_append},
+           "codec": codec, "across_buckets": across, "append_body_mib": body_mb, "append_cv": {"max_abs_err": err, "scale": scale,
+                                                     "tol": TOL_UPDATE},
+           "compile_count": {"before_wire": compiles0, "after_wire": compiles1},
+           "plans_built": {"before_wire": built0, "after_wire": built1},
+           "plans_updated": {"before_wire": updated0, "after_wire": updated1},
+           "edge": edge_stats, "trace_span_names": sorted(span_names),
+           "serve_cv": boots, "examples": examples,
+           "warm_boot_vs_cold": boots["warm"]["to_listening_s"] / boots["cold"]["to_listening_s"]}
+    emit(out)
+    print(f"http: wire batch median {statistics.median(wire_times):.4f} s against in-process "
+          f"{statistics.median(in_times):.4f} s (codec: encode {t_encode:.4f} s, decode "
+          f"{t_decode:.4f} s); SSE first chunk {t_first:.4f} s, whole "
+          f"{t_stream:.4f} s; serve_cv to listening cold {boots['cold']['to_listening_s']:.2f} "
+          f"s, warm {boots['warm']['to_listening_s']:.2f} s; launches wire "
+          f"{ {k: v for k, v in l_wire.items() if k != 'calls'} } = in process",
+          flush=True)
+    bad_checks = [k for k, v in checks.items() if not v]
+    if bad_checks:
+        fail(f"http: checks failed: {bad_checks} (launches in process {l_inproc}, wire "
+             f"{l_wire}; compile_count {compiles0} -> {compiles1}; plans_built {built0} -> "
+             f"{built1}, plans_updated {updated0} -> {updated1})")
+    if boots["warm"]["plans_built"] != {"after_warmup": 0, "after_batch": 0}:
+        fail(f"http: the warm reboot built plans: {boots['warm']}")
+    expect_launches("http", total, ["hat_apply", "foldsolve", "fold_eval"])
+    return {"launches": total}
+
+
+def _is_float(text: str) -> bool:
+    try:
+        float(text)
+        return True
+    except ValueError:
+        return False
 
 
 def lm_serve_phase(dev):
@@ -1352,6 +1724,7 @@ def main() -> None:
     from repro_torch.rsa import compare as rsa_compare
     from repro_torch.rsa import rdm as rsa_rdm
 
+    t_start = time.perf_counter()
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     dev = torch.device("cuda")
@@ -1743,7 +2116,10 @@ def main() -> None:
     del ds_more
     upd = update_phase(x, x64, y, lam, x_more, y_more)
     srv = serve_phase(ds, x, y, folds, lam, md["lam"], x_more)
+    htp = http_phase(srv, y, x_more, y_more)
     del x_more
+    for k in ("engine", "handle", "batch", "first", "update"):
+        srv.pop(k)
 
     # -- 7. the LLM substrate: serving and layer probes at gemma2-2b width -----
     lm_model, lm_cfg, launches_serve = lm_serve_phase(dev)
@@ -2109,7 +2485,7 @@ def main() -> None:
     ]
     by_path = {"binary": launches, "multiclass": launches_mc, "rsa": launches_rsa,
                "multidim": md["launches"], "tune": tune["launches"], "update": upd["launches"],
-               "serve": srv["launches"], "lm_serve": launches_serve,
+               "serve": srv["launches"], "http": htp["launches"], "lm_serve": launches_serve,
                "lm_probe": launches_probe}
     # the new paths' shapes (launches: the path that runs the shape; the
     # fold_eval LOO rows run only in the tune phase's f64 check)
@@ -2394,6 +2770,7 @@ def main() -> None:
         "tol_ulps": TOL_ATTN_BF16_ULPS, **attn_shapes[0], "shapes": attn_shapes,
         "skips": skips, "hgmma": hgmma, "tensor_core_ptxas": flash_tc})
     emit({"kernels": kernels, "card": smi})
+    emit({"phase": "wall", "seconds": time.perf_counter() - t_start, "card": smi})
 
     print(f"nvidia-smi: {smi}", flush=True)
     emit({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -42,11 +42,11 @@ How this package differs from the reference's ``serve/engine.py``:
     without a card (``kernels.common.resolve_device``); tests pass
     ``device="cpu"``. Every tensor the engine creates is made on its
     device — identity permutations, padding, permutation draws — and
-    every input it is handed is moved there. ``fused=None`` resolves by
-    that device (``kernels.common.default_fused``): the kernel route on
-    CUDA, the Cholesky composite on the CPU; ``fused=False`` keeps the
-    composite anywhere. Plan builds take the ``gram`` kernel on CUDA
-    through ``fastcv.prepare`` (``gram_impl`` has the one value "auto").
+    every input it is handed is moved there. The device alone picks the
+    eval route (``kernels.common.default_fused``): the kernels on CUDA,
+    the Cholesky composite on the CPU (the composite stays reachable on
+    any device through the ``core`` functions' ``fused=False``). Plan
+    builds take the ``gram`` kernel on CUDA through ``fastcv.prepare``.
   * **The compile-count contract.** The engine runs eagerly: no
     ``torch.compile``, no CUDA graphs. Each cached evaluator is a small
     :class:`_Evaluator` that records the distinct input signatures it has
@@ -54,9 +54,10 @@ How this package differs from the reference's ``serve/engine.py``:
     plan has its train block. :meth:`compile_count` sums them, so the
     reference's invariant (flat after a warm-up that covers the traffic's
     buckets) holds unchanged and counts distinct kernel launch shapes.
-  * **Donation.** Eager PyTorch never aliases a caller's tensor into an
-    output, so ``donate`` / :meth:`set_donate` select nothing; they stay
-    for the reference's interface and stay in the evaluator keys.
+  * **No knobs that select nothing.** The reference's ``donate`` /
+    ``set_donate``, ``gram_impl`` and ``fused`` have no counterpart:
+    eager PyTorch never aliases a caller's tensor into an output, the
+    Gram route follows the tensor's device, and so does the eval route.
   * **Fingerprints.** Tensors are mutable, so ``fastcv.fingerprint``
     memoises nothing and copies X to the host. :meth:`register` mints the
     plan key once; resolving a handle reuses the key kept in the registry
@@ -65,8 +66,8 @@ How this package differs from the reference's ``serve/engine.py``:
   * **RNG.** Permutations are drawn from an integer seed by
     ``core.permutation.permutation_indices`` (prefix-stable), not by
     ``jax.random``.
-  * Meshes (``mesh``, ``feature_axis``, ``perm_axes``,
-    ``gram_impl="distributed"``, the sharded null) are not ported here.
+  * Meshes (``mesh``, ``feature_axis``, ``perm_axes``, the distributed
+    Gram, the sharded null) are not ported here.
 
 :meth:`CVEngine.warmup` turns the lazy caches into an explicit readiness
 API: it pre-builds (and optionally pins) the plan for a dataset spec and
@@ -102,7 +103,6 @@ from repro_torch.serve.workload import (DatasetHandle, _rdm_p_value, _synchroniz
 
 __all__ = ["EngineConfig", "CVEngine", "DatasetHandle"]
 
-_GRAM_IMPLS = ("auto",)
 _PRECISIONS = ("fp32", "bf16_gram")  # mirrors repro_torch.kernels.gram.ops
 _WARMUP_TASKS = ("binary", "ridge", "multiclass", "permutation", "rsa")
 
@@ -117,24 +117,41 @@ def _signature(a):
     return a
 
 
+def _non_finite(out) -> bool:
+    """True if any floating tensor in ``out`` (a tensor or a tuple of
+    them) holds a NaN or an infinity; one host sync per tensor."""
+    parts = out if isinstance(out, (tuple, list)) else (out,)
+    return any(isinstance(t, torch.Tensor) and t.is_floating_point()
+               and not bool(torch.isfinite(t).all()) for t in parts)
+
+
 class _Evaluator:
     """One eval path and the distinct input signatures it has served.
 
     The eager counterpart of the reference's per-path jit cache: a
     signature is recorded where a jitted program would have been traced,
     so ``len(signatures)`` is what ``fn._cache_size()`` counts there.
-    (``set.add`` is atomic under the interpreter lock.)
+    (``set.add`` is atomic under the interpreter lock.) With the engine's
+    ``debug_nans`` set, each call's outputs are checked for NaN and ±inf,
+    and a bad one raises ``FloatingPointError`` naming the evaluator (the
+    counterpart of the reference's ``jax_debug_nans``; the check syncs the
+    host, so it is off by default).
     """
 
-    __slots__ = ("fn", "signatures")
+    __slots__ = ("fn", "signatures", "name", "engine")
 
-    def __init__(self, fn):
+    def __init__(self, fn, name: str, engine):
         self.fn = fn
         self.signatures: set = set()
+        self.name = name
+        self.engine = engine
 
     def __call__(self, *args):
         self.signatures.add(tuple(_signature(a) for a in args))
-        return self.fn(*args)
+        out = self.fn(*args)
+        if self.engine.debug_nans and _non_finite(out):
+            raise FloatingPointError(f"evaluator {self.name} produced a NaN or an infinity")
+        return out
 
 
 @dataclasses.dataclass
@@ -173,14 +190,6 @@ class EngineConfig:
     """Engine knobs.
 
     cache_bytes: PlanCache byte budget (device bytes of the plans).
-    gram_impl:   "auto" only: ``fastcv.prepare`` takes the ``gram`` kernel
-                 for a CUDA tensor and the plain composite for a CPU one.
-    donate:      kept for the reference's interface; eager PyTorch never
-                 aliases a label batch into an output, so it changes
-                 nothing but the evaluator keys.
-    fused:       route CV evals through the fold-eval kernels (``True``)
-                 or the Cholesky composite (``False``). None (default) =
-                 by device: the kernels on CUDA, the composite on the CPU.
     precision:   Gram build precision: "fp32" (default) or "bf16_gram"
                  (dual-mode Gram from bf16 inputs with f32 accumulation,
                  all solves full precision). Part of the plan key.
@@ -197,9 +206,6 @@ class EngineConfig:
     """
 
     cache_bytes: int = 512 << 20
-    gram_impl: str = "auto"
-    donate: Optional[bool] = None
-    fused: Optional[bool] = None
     precision: str = "fp32"
     buckets: Sequence[int] = DEFAULT_BUCKETS
     plan_store: Optional[str] = None
@@ -208,8 +214,6 @@ class EngineConfig:
     device: Optional[object] = None
 
     def __post_init__(self):
-        if self.gram_impl not in _GRAM_IMPLS:
-            raise ValueError(f"gram_impl must be one of {_GRAM_IMPLS}")
         if self.save_plans and not self.plan_store:
             raise ValueError("save_plans=True requires a plan_store directory")
         if self.precision not in _PRECISIONS:
@@ -247,20 +251,18 @@ class CVEngine:
         self.tracer = Tracer(registry=self.metrics)
         self._declare_metrics()
         self.batcher = MicroBatcher(self.config.buckets, metrics=self.metrics)
-        self._donate = bool(self.config.donate)
-        self._fused = (default_fused(self.device) if self.config.fused is None
-                       else bool(self.config.fused))
+        # the kernels on CUDA, the Cholesky composite on the CPU
+        self._fused = default_fused(self.device)
         # Evaluators are created lazily but exactly once per static
         # signature and held forever: their recorded input signatures are
         # what compile_count() sums. CV evals come from the least-squares
         # estimator registry (repro_torch.serve.workload): one evaluator per
-        # (eval_key, static options, donate, fused) — registered estimators
-        # sharing an eval_key (ridge / ridge_multi) share it. donate/fused
-        # sit in the key as in the reference.
-        self._evals = {}  # (eval_key, static opts, donate, fused) -> _Evaluator
-        self._perm_binary = {}  # (metric, adjust_bias, fused) -> _Evaluator -> (B,)
-        self._perm_multiclass = {}  # (num_classes, fused) -> _Evaluator -> (B,)
-        self._rsa_pairs = {}  # (dissim, adjust_bias, donate, fused) -> _Evaluator
+        # (eval_key, static options) — registered estimators sharing an
+        # eval_key (ridge / ridge_multi) share it.
+        self._evals = {}  # (eval_key, static opts) -> _Evaluator
+        self._perm_binary = {}  # (metric, adjust_bias) -> _Evaluator -> (B,)
+        self._perm_multiclass = {}  # num_classes -> _Evaluator -> (B,)
+        self._rsa_pairs = {}  # (dissim, adjust_bias) -> _Evaluator
         self._rsa_score = {}  # method -> _Evaluator[(emp, models) -> (M,)]
         self._rsa_null = {}  # method -> _Evaluator[(emp, models, perms) -> (M,T)]
         self._datasets = {}  # handle key -> _DatasetRecord
@@ -269,6 +271,8 @@ class CVEngine:
         self.plans_built = 0
         self.plans_updated = 0
         self.labels_evaluated = 0
+        # raise FloatingPointError on a non-finite eval output (syncs the host)
+        self.debug_nans = False
 
     def _declare_metrics(self) -> None:
         """Register the central :data:`repro_torch.serve.obs.METRICS` table.
@@ -337,16 +341,14 @@ class CVEngine:
         """Back to zero-overhead mode (finished traces stay in the ring)."""
         self.tracer.disable()
 
-    def set_donate(self, donate: bool) -> None:
-        """Flip the ``donate`` flag (kept for the reference's interface).
-
-        It stays part of every evaluator key, as in the reference, so a
-        flip starts fresh signature counts; no tensor is ever aliased.
-        """
-        self._donate = bool(donate)
-
     def _on_device(self, a) -> torch.Tensor:
         return _tensor(a, self.device)
+
+    def _class_labels(self, y) -> torch.Tensor:
+        """Integer class labels on the engine's device as int64, so int32
+        and int64 callers share one launch signature (as warm-up's do)."""
+        y = self._on_device(y)
+        return y if y.is_floating_point() else y.to(torch.int64)
 
     # ------------------------------------------------------------------
     # Plans
@@ -882,11 +884,13 @@ class CVEngine:
             return plan
         return dataclasses.replace(plan, h_tr_te=None)
 
-    @staticmethod
-    def _evaluator(table: dict, key, make) -> _Evaluator:
+    def _evaluator(self, family: str, key, make) -> _Evaluator:
+        """The evaluator of ``family`` (the name of one of the evaluator
+        tables) under ``key``, made on first use."""
+        table = getattr(self, family)
         fn = table.get(key)
         if fn is None:
-            fn = table[key] = _Evaluator(make())
+            fn = table[key] = _Evaluator(make(), f"{family.lstrip('_')}{key!r}", self)
         return fn
 
     # The reference copied an exact-bucket batch the engine did not create
@@ -925,9 +929,8 @@ class CVEngine:
         if not spec.needs_train(opts):
             plan = self._strip_train(plan)
         batch, squeeze = spec.encode(self._on_device(y), plan.h.dtype, opts)
-        key = (spec.eval_key, spec.static_key(opts), self._donate, self._fused)
-        fn = self._evaluator(self._evals, key,
-                             lambda: spec.make_eval(opts, self._donate, self._fused))
+        key = (spec.eval_key, spec.static_key(opts))
+        fn = self._evaluator("_evals", key, lambda: spec.make_eval(opts, self._fused))
         if spec.layout == "columns":
             padded, b = self._pad_cols(batch)
             with self.tracer.span("eval"):
@@ -973,8 +976,8 @@ class CVEngine:
         bucketed column path as binary/ridge evals: padded (all-zero)
         columns score to a harmless constant and are sliced away.
         """
-        cache_key = (dissimilarity, adjust_bias, self._donate, self._fused)
-        fn = self._evaluator(self._rsa_pairs, cache_key, lambda: rsa_rdm.make_eval_pairs(
+        cache_key = (dissimilarity, adjust_bias)
+        fn = self._evaluator("_rsa_pairs", cache_key, lambda: rsa_rdm.make_eval_pairs(
             dissimilarity, adjust_bias, fused=self._fused))
         if not adjust_bias:
             plan = self._strip_train(plan)
@@ -988,7 +991,7 @@ class CVEngine:
 
     def score_rdms(self, empirical, model_rdms, method: str = "spearman") -> torch.Tensor:
         """(M,) model-RDM scores."""
-        fn = self._evaluator(self._rsa_score, method, lambda: rsa_compare.make_compare(method))
+        fn = self._evaluator("_rsa_score", method, lambda: rsa_compare.make_compare(method))
         with self.tracer.span("eval"):
             return self.tracer.sync(fn(self._on_device(empirical),
                                        self._on_device(model_rdms)))
@@ -1002,7 +1005,7 @@ class CVEngine:
         chunk bucket.
         """
         with self.tracer.span("null_chunk"):
-            fn = self._evaluator(self._rsa_null, method,
+            fn = self._evaluator("_rsa_null", method,
                                  lambda: rsa_compare.make_compare_null(method))
             padded, b = self._pad_rows(self._on_device(perms))
             return self.tracer.sync(fn(self._on_device(empirical),
@@ -1060,7 +1063,7 @@ class CVEngine:
 
             return _eval
 
-        return self._evaluator(self._perm_binary, (metric, adjust_bias, fused), make)
+        return self._evaluator("_perm_binary", (metric, adjust_bias), make)
 
     def _perm_multiclass_fn(self, num_classes: int) -> _Evaluator:
         """(plan, y (N,), perms (B, N)) -> (B,) accuracies; the B·C
@@ -1076,7 +1079,7 @@ class CVEngine:
 
             return _eval
 
-        return self._evaluator(self._perm_multiclass, (num_classes, fused), make)
+        return self._evaluator("_perm_multiclass", num_classes, make)
 
     def _identity(self, n: int) -> torch.Tensor:
         """The (1, N) identity permutation, padded to its bucket."""
@@ -1130,7 +1133,7 @@ class CVEngine:
 
     def observed_multiclass(self, plan: fastcv.CVPlan, y, *, num_classes: int) -> torch.Tensor:
         with self.tracer.span("eval"):
-            y = self._on_device(y)
+            y = self._class_labels(y)
             fn = self._perm_multiclass_fn(num_classes)
             return self.tracer.sync(fn(plan, y, self._identity(y.shape[0]))[0])
 
@@ -1140,7 +1143,7 @@ class CVEngine:
         with self.tracer.span("null_chunk"):
             fn = self._perm_multiclass_fn(num_classes)
             padded, b = self._pad_rows(self._on_device(perms))
-            out = self.tracer.sync(fn(plan, self._on_device(y), padded)[:b])
+            out = self.tracer.sync(fn(plan, self._class_labels(y), padded)[:b])
         with self._lock:
             self.labels_evaluated += b
         return out
@@ -1192,7 +1195,7 @@ class CVEngine:
     ) -> perm_lib.PermutationResult:
         """Algorithm 2 under permutations against a cached plan."""
         fn = self._perm_multiclass_fn(num_classes)
-        y = self._on_device(y)
+        y = self._class_labels(y)
         n = y.shape[0]
         observed = self.observed_multiclass(plan, y, num_classes=num_classes)
         t_gen = bucket_size(n_perm, self.config.buckets)

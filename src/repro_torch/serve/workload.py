@@ -210,6 +210,10 @@ def _columns_test_targets(y, plan, opts):
 
 
 def _rows_encode(y, dtype, opts):
+    # integer labels as int64: int32 and int64 callers share one launch
+    # signature (warm-up's labels are int64)
+    if not y.is_floating_point():
+        y = y.to(torch.int64)
     squeeze = y.ndim == 1
     return (y[None, :] if squeeze else y), squeeze
 
@@ -232,13 +236,14 @@ class LeastSquaresSpec:
       layout:       "columns" (targets stack along a trailing batch dim,
                     binary/ridge style) or "rows" (label vectors stack
                     along a leading batch dim, multi-class style).
-      make_eval:    ``(opts, donate, fused) -> fn[(plan, batch) -> out]``
-                    — a fresh evaluator (the engine memoises one per
-                    (eval_key, static opts, donate, fused) and counts the
-                    distinct input signatures it serves). ``fused`` asks
-                    for the kernel route instead of the Cholesky
-                    composite; ``donate`` has no effect in eager PyTorch
-                    and is kept for the reference's interface.
+      make_eval:    ``(opts, fused) -> fn[(plan, batch) -> out]`` — a
+                    fresh evaluator (the engine memoises one per
+                    (eval_key, static opts) and counts the distinct input
+                    signatures it serves). ``fused`` asks for the kernel
+                    route instead of the Cholesky composite; the engine
+                    passes what its device takes. (The reference's
+                    factories also take ``donate``, which eager PyTorch
+                    has no use for.)
       encode:       ``(y, dtype, opts) -> (batch2d, squeeze)`` target
                     normalisation into the layout.
       test_targets: ``(y, plan, opts) -> y_te`` matching test targets.
@@ -362,19 +367,15 @@ def _score_ridge_multi(values, y_te, opts):
     return (1.0 - ss_res / torch.clamp(ss_tot, min=torch.finfo(t.dtype).tiny)).mean()
 
 
-# ``donate`` is part of the reference's factory signature; eager PyTorch
-# never aliases an input into an output, so it selects nothing here.
-
-
-def _make_eval_binary(opts, donate, fused):
+def _make_eval_binary(opts, fused):
     return fastcv.make_eval_binary(adjust_bias=opts["adjust_bias"], fused=fused)
 
 
-def _make_eval_ridge(opts, donate, fused):
+def _make_eval_ridge(opts, fused):
     return fastcv.make_eval_cv(fused=fused)
 
 
-def _make_eval_multiclass(opts, donate, fused):
+def _make_eval_multiclass(opts, fused):
     from repro_torch.core import multiclass
 
     return multiclass.make_eval_multiclass(opts["num_classes"], fused=fused)

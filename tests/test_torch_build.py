@@ -24,7 +24,8 @@ PORT = REPO / "src" / "repro_torch"
 
 
 def _port_files():
-    return sorted(PORT.rglob("*.py")) + [REPO / "chip_smoke.py"]
+    return (sorted(PORT.rglob("*.py")) + sorted((REPO / "examples" / "torch").glob("*.py"))
+            + [REPO / "chip_smoke.py"])
 
 
 @pytest.mark.parametrize("path", _port_files(), ids=lambda p: str(p.relative_to(REPO)))
@@ -43,14 +44,19 @@ def test_port_never_imports_jax_or_the_reference(path):
 
 def test_the_import_check_covers_every_subpackage():
     """The check above reaches the LLM substrate's configs, models and
-    launchers as well as the analysis packages and the kernels."""
+    launchers as well as the analysis packages and the kernels, the serve
+    edges and their entry point, and the port's examples."""
     subpackages = {p.relative_to(PORT).parts[0] for p in _port_files() if p.is_relative_to(PORT)}
     assert {"configs", "models", "launch", "core", "rsa", "data", "kernels",
             "serve"} <= subpackages
     names = {p.relative_to(PORT).as_posix() for p in _port_files() if p.is_relative_to(PORT)}
     assert {"launch/serve.py", "launch/probe.py", "models/convert.py",
             "kernels/flash_attention/ops.py", "configs/gemma2_2b.py",
-            "serve/engine.py", "serve/workload.py"} <= names
+            "serve/engine.py", "serve/workload.py", "serve/api.py", "serve/aio.py",
+            "serve/client.py", "serve/http.py", "launch/serve_cv.py"} <= names
+    examples = {p.name for p in _port_files() if p.parent == REPO / "examples" / "torch"}
+    assert {"quickstart.py", "eeg_permutation.py", "rsa_probe.py", "serve_quickstart.py",
+            "streaming_quickstart.py", "http_quickstart.py", "async_stream.py"} <= examples
 
 
 def test_importing_the_whole_port_loads_no_jax():

@@ -8,6 +8,7 @@ with nvcc; ``--noconftest`` skips the root conftest, which configures jax).
 
 import dataclasses
 
+import numpy as np
 import pytest
 import torch
 
@@ -615,14 +616,17 @@ def _serve_problem(n=96, p=300, k=6):
 @pytest.mark.parametrize("dtype,tol", [(torch.float32, 1e-4), (torch.float64, 1e-9)])
 def test_engine_on_the_card_equals_its_plain_route(gen, dtype, tol):
     """One batch of every CV kind through a CUDA engine (the kernels)
-    against a CPU engine (the plain versions) on the same plan, with the
-    CUDA launches counted. (f32: decision values pass hat_apply, foldsolve
-    and the bias adjust, each rounding on its own; the card's f32 route is
-    held end to end at 1e-4, as in the tests above.)"""
+    against the kernels' plain versions called through ``core`` on CPU
+    copies (``fused=True``) of the same plan, with the CUDA launches
+    counted. (f32: decision values pass hat_apply, foldsolve and the bias
+    adjust, each rounding on its own; the card's f32 route is held end to
+    end at 1e-4, as in the tests above.)"""
+    import dataclasses as dc
+
     from repro_torch.serve import CVEngine, EngineConfig, Workload, run_workloads
 
     x, y, yc, k = _serve_problem()
-    cpu = CVEngine(EngineConfig(device="cpu", fused=True))
+    cpu = CVEngine(EngineConfig(device="cpu"))
     card = CVEngine(EngineConfig(device="cuda"))
     assert card.device.type == "cuda" and card._fused
     h_cpu = cpu.register(x.to(dtype), folds.kfold(len(x), k, seed=0, device="cpu"), 5.0)
@@ -642,11 +646,15 @@ def test_engine_on_the_card_equals_its_plain_route(gen, dtype, tol):
     torch.cuda.synchronize()
     assert all(_build.LAUNCHES[n] > before[n] for n in ("hat_apply", "foldsolve", "fold_eval"))
     assert _build.LAUNCHES["gram"] == before["gram"]              # the plan was given
-    want = run_workloads(cpu, work(h_cpu))
+    yd = y.to(dtype)
+    want = [fastcv.binary_dvals(plan, yd, fused=True),
+            fastcv.binary_dvals(plan, torch.stack([yd, -yd, yd], 1), fused=True),
+            fastcv.make_eval_cv(fused=True)(dc.replace(plan, h_tr_te=None), yd[:, None])[..., 0],
+            multiclass.batch_predict(plan, yc[None], 3, fused=True)[0]]
     for a, b in zip(got[:3], want[:3]):
         assert a.values.device.type == "cuda"
-        _close(a.values.cpu(), b.values, tol)
-    assert torch.equal(got[3].values.cpu(), want[3].values)
+        _close(a.values.cpu(), b, tol)
+    assert torch.equal(got[3].values.cpu(), want[3])
     assert card.plans_built == 0
 
 
@@ -654,12 +662,13 @@ def test_engine_on_the_card_equals_its_plain_route(gen, dtype, tol):
 def test_bucket_1024_null_on_the_card_equals_plain(gen, kind):
     """A permutation null at the bucket of T = 1,000 (one padded batch of
     1,024: hat_apply and foldsolve once each) against the same draws on
-    the CPU's plain versions, on one plan."""
-    from repro_torch.core import permutation
+    the CPU's plain versions (the core evaluators with ``fused=True``), on
+    one plan."""
+    from repro_torch.core import metrics, permutation
     from repro_torch.serve import CVEngine, EngineConfig
 
     x, y, yc, k = _serve_problem()
-    cpu = CVEngine(EngineConfig(device="cpu", fused=True))
+    cpu = CVEngine(EngineConfig(device="cpu"))
     card = CVEngine(EngineConfig(device="cuda"))
     _, plan = cpu.plan(x, folds.kfold(len(x), k, seed=0, device="cpu"), 5.0)
     plan_card = fastcv.CVPlan(*(t.cuda() for t in (plan.h, plan.te_idx, plan.tr_idx,
@@ -667,12 +676,16 @@ def test_bucket_1024_null_on_the_card_equals_plain(gen, kind):
     perms = permutation.permutation_indices(0, len(x), 1024, device="cuda")
     labels = y if kind == "binary" else yc
     before = dict(_build.LAUNCHES)
+    rows = labels[perms[:1000].cpu()]                                  # (1000, N)
     if kind == "binary":
         got = card.null_binary(plan_card, labels.cuda(), perms[:1000])
-        want = cpu.null_binary(plan, labels, perms[:1000].cpu())
+        yp = rows.T.contiguous()
+        dv = fastcv.binary_dvals(plan, yp, fused=True)
+        want = permutation._fold_metric_binary(dv, yp[plan.te_idx], "accuracy")
     else:
         got = card.null_multiclass(plan_card, labels.cuda(), perms[:1000], num_classes=3)
-        want = cpu.null_multiclass(plan, labels, perms[:1000].cpu(), num_classes=3)
+        hits = multiclass.batch_predict(plan, rows, 3, fused=True) == rows[:, plan.te_idx]
+        want = metrics.share(hits.sum(dim=(1, 2)), hits.shape[1] * hits.shape[2])
     torch.cuda.synchronize()
     assert _build.LAUNCHES["hat_apply"] - before["hat_apply"] == 1
     assert _build.LAUNCHES["foldsolve"] - before["foldsolve"] == 1
@@ -723,3 +736,78 @@ def test_tracer_waits_for_the_card_only_with_a_trace(gen, monkeypatch):
     with tracer.activate(tracer.trace()):
         tracer.sync((x, (torch.ones(2), x)))
     assert len(calls) == 1 and calls[0].type == "cuda"
+
+
+# ---------------------------------------------------------------------------
+# The serve edges on the card
+# ---------------------------------------------------------------------------
+
+
+def _edge_batch(h, y, yc):
+    from repro_torch.serve import Workload
+
+    y3 = np.stack([np.asarray(y), -np.asarray(y), np.asarray(y)], 1)
+    return [Workload(kind="cv", dataset=h, y=y),
+            Workload(kind="cv", dataset=h, y=y3),
+            Workload(kind="cv", dataset=h, y=y, estimator="ridge"),
+            Workload(kind="cv", dataset=h, y=yc, estimator="multiclass", num_classes=3),
+            Workload(kind="permutation", dataset=h, y=y, n_perm=100, seed=1),
+            Workload(kind="permutation", dataset=h, y=yc, estimator="multiclass",
+                     num_classes=3, n_perm=50, seed=2)]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+def test_edge_on_the_card_equals_in_process_at_equal_buckets(gen, dtype):
+    """One batch over HTTP and the same batch in process, on one engine on
+    the card: the same workloads coalesce into the same buckets, so every
+    decoded response equals its in-process one bit for bit, and the two
+    runs launch the kernels equally often."""
+    from repro_torch.serve import CVEngine, EdgeThread, EngineConfig, HTTPClient, run_workloads
+    from repro_torch.serve.http import assert_responses_equal
+
+    x, y, yc, k = _serve_problem()
+    engine = CVEngine(EngineConfig(device="cuda"))
+    h = engine.register(x.to(dtype).cuda(), folds.kfold(len(x), k, seed=0, device="cuda"), 5.0)
+    yd, ycn = y.to(dtype).numpy(), yc.numpy()          # the wire's own inputs: arrays
+    run_workloads(engine, _edge_batch(h, yd, ycn))               # every shape once
+    torch.cuda.synchronize()
+    before = dict(_build.LAUNCHES)
+    want = run_workloads(engine, _edge_batch(h, yd, ycn))
+    torch.cuda.synchronize()
+    in_process = {n: _build.LAUNCHES[n] - before[n] for n in before}
+    compiles = engine.compile_count()
+    with EdgeThread(engine) as edge, HTTPClient(edge.url) as hc:
+        before = dict(_build.LAUNCHES)
+        got = hc.gather(_edge_batch(h, yd, ycn))
+        wire = {n: _build.LAUNCHES[n] - before[n] for n in before}
+    for a, b in zip(got, want, strict=True):
+        assert_responses_equal(a, b)
+    assert wire == in_process and in_process["hat_apply"] > 0 and in_process["fold_eval"] > 0
+    assert engine.compile_count() == compiles
+
+
+def test_sse_on_the_card_equals_stream_workload_at_an_equal_chunk(gen):
+    from repro_torch.serve import (CVEngine, EdgeThread, EngineConfig, HTTPClient, Workload,
+                                   stream_workload)
+
+    x, y, yc, k = _serve_problem()
+    engine = CVEngine(EngineConfig(device="cuda"))
+    h = engine.register(x.float().cuda(), folds.kfold(len(x), k, seed=0, device="cuda"), 5.0)
+    w = Workload(kind="permutation", dataset=h, y=y.float(), n_perm=200, seed=3)
+    want = list(stream_workload(engine, w, chunk=64))
+    with EdgeThread(engine, stream_chunk=64) as edge, HTTPClient(edge.url) as hc:
+        got = list(hc.stream(w))
+    assert [(e.kind, e.done) for e in got] == [(e.kind, e.done) for e in want]
+    for a, b in zip(got, want):
+        if a.kind in ("observed", "null"):
+            assert torch.equal(a.payload, b.payload.cpu())
+    assert torch.equal(got[-1].payload.null, want[-1].payload.null.cpu())
+
+
+def test_default_client_and_edge_take_the_card(gen):
+    from repro_torch.serve import Client, EdgeThread
+
+    client = Client()
+    assert client.engine.device.type == "cuda" and client.engine._fused
+    with EdgeThread() as edge:
+        assert edge.engine.device.type == "cuda"

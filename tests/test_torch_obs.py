@@ -208,3 +208,50 @@ def test_engine_exposition_is_prometheus_text(problem):
     for line in text.rstrip("\n").split("\n"):
         assert _PROM_LINE.match(line), line
     assert set(engine.metrics.as_dict()) == set(obs.METRICS)
+
+
+# ---------------------------------------------------------------------------
+# The reference's obs contracts (tests/test_obs.py), held on the port
+# ---------------------------------------------------------------------------
+
+
+def test_cardinality_cap_folds_into_other():
+    reg = MetricsRegistry(max_series_per_metric=4)
+    c = reg.counter("labelled", "capped", labels=("who",))
+    for i in range(10):
+        c.inc(who=f"client-{i}")
+    assert len(c._series) <= 5  # 4 real + 1 overflow
+    assert reg.dropped_series == 6
+    assert c.value(who="_other") == 6
+    text = reg.render_prometheus()
+    assert 'labelled{who="_other"} 6' in text
+    assert "obs_dropped_series 6" in text
+
+
+_GOLDEN_STATS_KEYS = {
+    "hits", "misses", "evictions", "oversized", "pinned", "pinned_bytes", "bytes_in_use",
+    "byte_budget", "plans_built", "plans_updated", "labels_evaluated", "compiles",
+    "datasets_registered", "rdm_hits", "rdm_entries", "store_hits", "store_misses",
+    "store_writes", "store_bytes", "per_dataset",
+}
+
+
+def test_stats_schema_golden(problem):
+    from repro_torch.serve import Client
+
+    x, y, _, f = problem
+    engine = CVEngine(EngineConfig(device="cpu"))
+    handle = engine.register(x, f, LAM)
+    Client(engine).submit(Workload(kind="cv", dataset=handle, y=y, estimator="binary"))
+    s = engine.stats()
+    assert set(s) == _GOLDEN_STATS_KEYS
+    per = s["per_dataset"]
+    assert len(per) == 1
+    (rec,) = per.values()
+    assert set(rec) == {"n", "p", "version", "n_appended", "served",
+                        "plan_bytes", "resident", "pinned", "last_used"}
+    assert rec["version"] == 0 and rec["n_appended"] == 0
+    assert rec["n"] == N and rec["p"] == P
+    assert rec["served"] == 1
+    assert rec["resident"] and rec["plan_bytes"] > 0
+    assert rec["last_used"] > 0.0

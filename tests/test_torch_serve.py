@@ -8,7 +8,7 @@ scores on shared explicit draws to ≤ 1e-12. Beside them the port's own
 contracts: the plan cache's byte-budget LRU, pinning and oversize
 admission against the reference's on the same traffic; the batcher's
 segments and padding against the reference's; ``compile_count`` flat
-after a warm-up that covers the traffic's buckets; ``donate=True`` never
+after a warm-up that covers the traffic's buckets; the engine never
 touches a caller's batch; handle traffic never fingerprints X again, and
 a registered handle rebuilds from its own copy of X and the folds;
 versioned updates against the reference's; ``CVEngine()`` raising without
@@ -306,18 +306,24 @@ def test_compile_count_flat_after_warmup(problem):
 
 
 def test_donate_never_touches_the_callers_batch(problem):
-    x, y, _ = problem
-    engine = CVEngine(EngineConfig(device="cpu", donate=True))
+    # the engine has no donate knob: it never aliases or changes a caller's
+    # batch, at an exact bucket (no padding copy) or a padded one
+    x, y, yc = problem
+    engine = CVEngine(EngineConfig(device="cpu"))
+    assert not hasattr(engine, "set_donate")
     _, plan = engine.plan(torch.tensor(x), folds.kfold(N, K, seed=1, device="cpu"), LAM)
-    batch = torch.tensor(np.stack([y, -y, y, -y], axis=1))   # (N, 4): an exact bucket
-    kept = batch.clone()
-    out = engine.eval_binary(plan, batch)
-    assert torch.equal(batch, kept) and out.data_ptr() != batch.data_ptr()
-    assert torch.equal(out, CVEngine(EngineConfig(device="cpu")).eval_binary(plan, kept))
-    keys = {k[2] for k in engine._evals}
-    engine.set_donate(False)
-    engine.eval_binary(plan, batch)
-    assert {k[2] for k in engine._evals} == keys | {False}   # donate stays in the key
+    for width in (4, 3):                                     # 4: an exact bucket
+        batch = torch.tensor(np.stack([y, -y, y, -y][:width], axis=1))
+        kept = batch.clone()
+        out = engine.eval_binary(plan, batch)
+        assert torch.equal(batch, kept) and out.data_ptr() != batch.data_ptr()
+        assert torch.equal(out, engine.eval_binary(plan, kept))
+    rows = torch.tensor(np.stack([yc, np.roll(yc, 1)]))
+    kept = rows.clone()
+    out = engine.eval_multiclass(plan, rows, 3)
+    assert torch.equal(rows, kept) and out.data_ptr() != rows.data_ptr()
+    assert set(engine._evals) == {("binary", (("adjust_bias", True),)),
+                                  ("multiclass", (("num_classes", 3),))}
 
 
 def test_handle_traffic_never_fingerprints_x(problem, monkeypatch):
@@ -371,25 +377,26 @@ def test_default_engine_needs_a_card(monkeypatch):
         CVEngine()
     with pytest.raises(RuntimeError, match="no CUDA device"):
         CVEngine(EngineConfig(plan_store="unused"))
-    with pytest.raises(ValueError):
-        EngineConfig(gram_impl="xla")
+    for knob in ("donate", "gram_impl", "fused"):      # the device alone decides
+        with pytest.raises(TypeError):
+            EngineConfig(**{knob: None})
 
 
 def test_engine_moves_inputs_to_its_device(problem):
     """Plans, results and everything the engine makes live on its device;
-    an explicit fused=False keeps the composite, fused=True the kernels'
-    plain versions here (the same values to f64 rounding)."""
+    on the CPU the engine takes the Cholesky composite (the core functions'
+    fused=False), and the kernels' plain versions give the same values to
+    f64 rounding."""
     x, y, _ = problem
-    results = {}
-    for fused in (None, False, True):
-        engine = CVEngine(EngineConfig(device="cpu", fused=fused))
-        _, plan = engine.plan(x, (np.asarray(folds.kfold(N, K, seed=1, device="cpu").te_idx),
-                                  np.asarray(folds.kfold(N, K, seed=1, device="cpu").tr_idx)),
-                              LAM)
-        assert plan.h.device.type == "cpu" and plan.te_idx.dtype == torch.int32
-        results[fused] = engine.eval_binary(plan, y)
-    assert torch.equal(results[None], results[False])
-    _close(results[True], results[False])
+    engine = CVEngine(EngineConfig(device="cpu"))
+    _, plan = engine.plan(x, (np.asarray(folds.kfold(N, K, seed=1, device="cpu").te_idx),
+                              np.asarray(folds.kfold(N, K, seed=1, device="cpu").tr_idx)),
+                          LAM)
+    assert plan.h.device.type == "cpu" and plan.te_idx.dtype == torch.int32
+    got = engine.eval_binary(plan, y)
+    assert got.device.type == "cpu" and not engine._fused
+    assert torch.equal(got, fastcv.binary_dvals(plan, torch.tensor(y), fused=False))
+    _close(got, fastcv.binary_dvals(plan, torch.tensor(y), fused=True))
 
 
 # ---------------------------------------------------------------------------

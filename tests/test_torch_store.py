@@ -215,3 +215,81 @@ def test_store_device_follows_the_device_rule(tmp_path, monkeypatch):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="no CUDA device"):
         PlanStore(tmp_path)
+
+
+# ---------------------------------------------------------------------------
+# The reference's store contracts (tests/test_store.py), held on the port
+# ---------------------------------------------------------------------------
+
+
+def _distinct_plans(n_plans, seed0=10):
+    """(x, folds, key, plan) of n_plans different datasets."""
+    out = []
+    for i in range(n_plans):
+        x = torch.tensor(np.random.default_rng(seed0 + i).normal(size=(N, P)))
+        f = folds.kfold(N, K, seed=i, device="cpu")
+        out.append((x, f, fastcv.plan_key(x, f, LAM, "auto", True),
+                    fastcv.prepare(x, f, LAM, with_train_block=True)))
+    return out
+
+
+def test_gc_never_evicts_memory_pinned(tmp_path):
+    plans = _distinct_plans(3)
+    store = PlanStore(tmp_path, byte_budget=1 << 40, device="cpu")
+    for _, _, key, plan in plans:
+        store.save(key, plan)
+    pinned_key = plans[0][2]  # oldest AND protected
+    store.stats.byte_budget = store.total_bytes() // 3  # room for ~one entry
+    store.gc(protect=[pinned_key])
+    assert store.load(pinned_key) is not None, "pinned entry must survive GC"
+    assert store.stats.evictions == 2
+
+
+def test_engine_write_behind_protects_pins(tmp_path):
+    """The engine's save path shields cache-pinned keys from store GC."""
+    plans = _distinct_plans(2)
+    (x0, f0, key0, plan0), (x1, f1, _, _) = plans
+    probe = PlanStore(tmp_path / "probe", device="cpu")
+    probe.save(key0, plan0)
+    entry_bytes = probe.total_bytes()
+    engine = CVEngine(EngineConfig(device="cpu", plan_store=str(tmp_path / "store"),
+                                   save_plans=True,
+                                   store_bytes=int(entry_bytes * 1.5)))  # one fits, two don't
+    h0 = engine.register(x0, f0, LAM)
+    engine.resolve(h0)
+    engine.pin(h0)
+    engine.flush_store()
+    h1 = engine.register(x1, f1, LAM)
+    engine.resolve(h1)
+    engine.flush_store()
+    # over budget: GC ran, but the pinned (older) entry survived
+    assert engine.store.load(h0.key) is not None
+    assert engine.store.stats.evictions >= 1
+
+
+def test_concurrent_writers_do_not_corrupt(tmp_path):
+    import threading
+
+    plans = _distinct_plans(4)
+    stores = [PlanStore(tmp_path, device="cpu") for _ in range(2)]
+
+    def hammer(store, order):
+        for i in order:
+            _, _, key, plan = plans[i]
+            store.save(key, plan)
+
+    threads = [threading.Thread(target=hammer, args=(stores[0], [0, 1, 2, 3])),
+               threading.Thread(target=hammer, args=(stores[1], [3, 2, 1, 0]))]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join()
+    check = PlanStore(tmp_path, device="cpu")
+    assert len(check) == 4
+    for _, _, key, plan in plans:
+        loaded = check.load(key)
+        assert loaded is not None
+        assert torch.equal(plan.h, loaded.h)
+    assert check.stats.quarantined == 0
+    # exactly one commit per key across both writers
+    assert stores[0].stats.writes + stores[1].stats.writes == 4

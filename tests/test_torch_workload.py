@@ -398,7 +398,7 @@ def test_a_registered_estimator_is_served_with_no_engine_change(data, sides):
 
     register_estimator(LeastSquaresSpec(
         name=name, layout="columns",
-        make_eval=lambda opts, donate, fused: fastcv.make_eval_cv(fused=fused),
+        make_eval=lambda opts, fused: fastcv.make_eval_cv(fused=fused),
         encode=encode, score=lambda values, y_te, opts: ((values - y_te) ** 2).mean(),
         eval_key="ridge"))
     try:
@@ -424,3 +424,75 @@ def test_labels_evaluated_counts_requested_draws(data, sides):
     before = port.labels_evaluated
     port.permutation_binary(plan, torch.tensor(data["y"]), 20, 0)
     assert port.labels_evaluated - before == 20          # not the bucket's 32
+
+
+# ---------------------------------------------------------------------------
+# The reference's registry and RDM-memo contracts (tests/test_workload.py)
+# ---------------------------------------------------------------------------
+
+
+def _engine():
+    return CVEngine(EngineConfig(device="cpu"))
+
+
+def test_register_is_idempotent_and_introspectable(data):
+    engine = _engine()
+    h1 = engine.register(data["x"], data["folds"], LAM)
+    h2 = engine.register(data["x"], data["folds"], LAM)
+    assert h1 == h2
+    assert h1.n == N and h1.p == P
+    (info,) = engine.datasets()
+    assert info["resident"] is False and info["served"] == 0
+    run_workloads(engine, [Workload(kind="cv", dataset=h1, y=data["y"])])
+    (info,) = engine.datasets()
+    assert info["resident"] is True and info["served"] == 1 and info["nbytes"] > 0
+
+
+def test_handle_pin_warmup_evict(data):
+    engine = _engine()
+    h = engine.register(data["x"], data["folds"], LAM)
+    info = engine.warmup(h, tasks=("binary",), buckets=(1,), pin=True)
+    assert info["pinned"]
+    assert engine.datasets()[0]["pinned"] is True
+    assert engine.unpin(h)
+    assert engine.evict(h)
+    assert engine.datasets()[0]["resident"] is False
+    # a handle workload transparently rebuilds the evicted plan
+    built = engine.plans_built
+    (resp,) = run_workloads(engine, [Workload(kind="cv", dataset=h, y=data["y"])])
+    assert type(resp).__name__ == "CVResponse"
+    assert engine.plans_built == built + 1
+    engine.evict(h, deregister=True)
+    with pytest.raises(KeyError, match="not registered"):
+        run_workloads(engine, [Workload(kind="cv", dataset=h, y=data["y"])])
+
+
+def test_unregistered_handle_fails_clearly(data):
+    h = _engine().register(data["x"], data["folds"], LAM)
+    with pytest.raises(KeyError, match="not registered"):
+        run_workloads(_engine(), [Workload(kind="cv", dataset=h, y=data["y"])])
+
+
+def test_rdm_memo_stable_across_plan_variants(data):
+    """The memo must hit even when the same workload is later served from
+    the cached *superset* (train-block) plan instead of the train-free one."""
+    engine = _engine()
+    spec = DatasetSpec(data["x"], folds.stratified_kfold(data["yc"], K, seed=0, device="cpu"),
+                       LAM)
+    w = Workload(kind="rsa", dataset=spec, y=data["yc"], num_classes=C, adjust_bias=False)
+    run_workloads(engine, [w])  # builds the with_train_block=False plan
+    run_workloads(engine, [Workload(kind="cv", dataset=spec, y=data["y"])])  # superset resident
+    run_workloads(engine, [w])  # resolves via the superset key; must still hit
+    assert engine.stats()["rdm_hits"] == 1
+    assert engine.stats()["rdm_entries"] == 1
+
+
+def test_rdm_memo_streaming_and_batch_share_entries(data):
+    engine = _engine()
+    spec = DatasetSpec(data["x"], folds.stratified_kfold(data["yc"], K, seed=0, device="cpu"),
+                       LAM)
+    w = Workload(kind="rsa", dataset=spec, y=data["yc"], num_classes=C)
+    (batch,) = run_workloads(engine, [w])
+    events = list(stream_workload(engine, w))
+    assert engine.stats()["rdm_hits"] == 1  # the stream reused the memo
+    assert torch.equal(events[-1].payload.rdm, batch.rdm)
