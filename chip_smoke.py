@@ -53,6 +53,16 @@ then four more on the same subject:
   warm reboot with 0 plan builds), a ``--async 8`` replay with 0
   recompiles, and ``examples/torch/http_quickstart.py`` and
   ``serve_quickstart.py`` on the card;
+* distributed: ``core.distributed``, ``rsa.searchlight_rdm`` and a mesh
+  ``CVEngine`` through NCCL on a process group of one rank and a (1, 1)
+  ``DeviceMesh`` ("data", "model"): the feature-sharded Gram and hat
+  matrix, Algorithm 1 sharded over T = 1,000 permutations, ``searchlight_cv``
+  and ``searchlight_rdm`` over 20 sliding 50-ms windows (787 × 3,800
+  each), a mesh engine's plan, permutation test and streamed null, each
+  against its local counterpart bit for bit at equal widths (across
+  widths: ≥ 999 of 1,000 accuracies equal, none more than one prediction
+  apart), launches exact per call; the group is destroyed before the LLM
+  paths;
 
 and two paths of the LLM substrate at gemma2-2b's full width and depth
 (26 layers, d_model 2,304, 8/4 heads of 256, vocabulary 256,000, bf16,
@@ -1509,6 +1519,235 @@ def http_phase(srv, y, x_more, y_more) -> dict:
     return {"launches": total}
 
 
+# the distributed phase: core.distributed, rsa.searchlight_rdm and a mesh
+# engine over NCCL at world size 1 (the card's one GPU)
+DIST_WINDOWS = 20              # searchlight problems: 50-ms windows of the subject
+DIST_STREAM_CHUNK = 250        # the mesh engine's streamed null (bucket 256)
+
+
+def distributed_phase(ds, x, y, folds, lam) -> dict:
+    """``repro_torch.core.distributed``, ``rsa.searchlight_rdm`` and a mesh
+    ``CVEngine`` on the card, through NCCL: a process group of one rank (a
+    ``FileStore`` under the checkout, ``init_process_group("nccl")``) and a
+    (1, 1) ``DeviceMesh`` of dims ("data", "model"), the mesh one GPU can
+    hold (NCCL refuses two ranks on one device). On the main subject: the
+    feature-sharded Gram and hat matrix against ``centered_gram`` and
+    ``hat_matrix_dual`` (bit for bit); Algorithm 1 sharded over the
+    permutations (T = 1,000) against ``core.permutation`` at one chunk of
+    1,000; ``searchlight_cv`` and ``searchlight_rdm`` (8 conditions) over 20
+    sliding 50-ms windows (10 consecutive 5-ms windows × 380 channels; the
+    features are window-major) against ``binary_cv`` / ``rdm_binary``
+    window by window; a mesh engine's plan against a local engine's, its
+    T = 1,000 permutation test against ``sharded_null_from_plan`` called
+    directly and against the local engine's, and its null streamed at
+    chunk 1,024 (one chunk) against its monolithic null and at chunk 250
+    (bucket 256) against the local engine's stream at chunk 250. Each of
+    those is bit for bit; where widths differ (the mesh engine against the
+    local one, the 256-wide stream against the 1,024-wide null: hat_apply's
+    split count follows B) ≥ 999 of 1,000 accuracies must be equal and none
+    more than one prediction apart. Launches are exact per call; the
+    kernels are held against their plain versions at the path's new
+    shapes. The group is destroyed at the end, so later phases run as
+    before; if NCCL does not start or a check fails, the run fails."""
+    import datetime
+    import tempfile
+
+    import torch.distributed as dist
+    from torch.distributed.device_mesh import init_device_mesh
+
+    from repro_torch.core import distributed as D
+    from repro_torch.core import fastcv, metrics, permutation
+    from repro_torch.kernels.foldsolve.ops import foldsolve
+    from repro_torch.kernels.foldsolve.ref import foldsolve_ref
+    from repro_torch.kernels.gram.ops import centered_gram, gram
+    from repro_torch.kernels.gram.ref import gram_ref
+    from repro_torch.kernels.hat_apply.ops import hat_errors
+    from repro_torch.kernels.hat_apply.ref import hat_apply_ref
+    from repro_torch.rsa import rdm as rsa_rdm
+    from repro_torch.serve import CVEngine, EngineConfig, Workload, bucket_size, stream_workload
+
+    dev = x.device
+    n, p = x.shape
+    root = Path(__file__).resolve().parent
+    store_dir = tempfile.TemporaryDirectory(prefix=".chip_smoke_store-pg-", dir=root)
+    torch.cuda.set_device(dev)   # the communicator's device, before the mesh
+    try:
+        dist.init_process_group("nccl", init_method=f"file://{store_dir.name}/store", rank=0,
+                                world_size=1, timeout=datetime.timedelta(seconds=120))
+        mesh = init_device_mesh("cuda", (1, 1), mesh_dim_names=("data", "model"))
+    except (RuntimeError, ValueError) as err:
+        fail(f"distributed: NCCL did not start: {err}")
+    backend = dist.get_backend()
+    if backend != "nccl" or mesh.device_type != "cuda":
+        fail(f"distributed: the group runs {backend} on {mesh.device_type}, not nccl on cuda")
+    # each window: 10 consecutive 5-ms windows x 380 channels, 3,800 features
+    wp = p // DIST_WINDOWS
+    lam_w = lam * wp / p     # the windows' mean tr(G_c)/N (traces add over features)
+    xs = torch.stack([x[:, q * wp:(q + 1) * wp] for q in range(DIST_WINDOWS)])
+    idx = torch.arange(n, device=dev)
+    y8 = (4 * ds.y.to(dev) + (idx // 2) % 4).long()                       # 8 conditions
+    c8 = RSA_CONDITIONS
+    steps, secs, checks = {}, {}, {}
+    by_shape = collections.Counter()
+
+    def step(name, fn, want):
+        before = shape_counts()
+        out, secs[name], steps[name] = counted(fn)
+        by_shape.update(shape_counts() - before)
+        expect_exact(f"distributed {name}", steps[name], want)
+        return out
+
+    # -- core.distributed against the local calls ------------------------------
+    g = step("distributed_gram", lambda: D.distributed_gram(x, mesh), {"gram": 1})
+    checks["gram_equals_centered_gram"] = torch.equal(g, centered_gram(x))
+    h = step("distributed_hat_matrix", lambda: D.distributed_hat_matrix(x, lam, mesh),
+             {"gram": 1})
+    checks["hat_equals_hat_matrix_dual"] = torch.equal(
+        h, fastcv.hat_matrix_dual(x, lam, gram=centered_gram(x)))
+    perm = step("distributed_permutation_binary", lambda: D.distributed_permutation_binary(
+        x, y, folds, lam, N_PERM, SEED, mesh), {"gram": 1, "hat_apply": 2, "foldsolve": 2})
+    want = permutation.analytical_permutation_binary(x, y, folds, lam, N_PERM, SEED,
+                                                     chunk=N_PERM)
+    checks["permutation_equals_core"] = (torch.equal(perm.observed, want.observed)
+                                         and torch.equal(perm.null, want.null)
+                                         and torch.equal(perm.p, want.p))
+    per_window = {"gram": DIST_WINDOWS, "hat_apply": DIST_WINDOWS, "foldsolve": DIST_WINDOWS}
+    acc = step("searchlight_cv", lambda: D.searchlight_cv(xs, y, folds, lam_w, mesh),
+               per_window)
+    want_acc = []
+    for xq in xs:
+        dv, y_te = fastcv.binary_cv(xq, y, folds, lam_w)
+        hits = torch.where(dv >= 0, 1.0, -1.0).to(dv.dtype) == torch.sign(y_te)
+        want_acc.append(metrics.share(hits.sum(), hits.numel()))
+    checks["searchlight_equals_binary_cv"] = torch.equal(acc, torch.stack(want_acc))
+    rdms = step("searchlight_rdm", lambda: rsa_rdm.searchlight_rdm(
+        xs, y8, folds, lam_w, mesh, num_classes=c8), per_window)
+    checks["searchlight_rdm_equals_rdm_binary"] = torch.equal(rdms, torch.stack(
+        [rsa_rdm.rdm_binary(xq, y8, folds, c8, lam_w) for xq in xs]))
+
+    # -- a mesh engine against a local one --------------------------------------
+    engine = CVEngine(EngineConfig(device="cuda", mesh=mesh))
+    handle = engine.register(x, folds, lam)
+    _, plan = step("engine_plan", lambda: engine.resolve(handle), {"gram": 1})
+    local = CVEngine(EngineConfig(device="cuda"))
+    _, plan_l = local.plan(x, folds, lam)
+    checks["engine_h_equals_local"] = torch.equal(plan.h, plan_l.h)
+    res = step("engine_permutation_binary", lambda: engine.permutation_binary(
+        plan, y, N_PERM, SEED), {"hat_apply": 2, "foldsolve": 2})
+    t_gen = bucket_size(N_PERM, engine.config.buckets)
+    direct = D.sharded_null_from_plan(plan, y, permutation.permutation_indices(
+        SEED, n, t_gen, device=dev), mesh)[:N_PERM]
+    checks["engine_null_equals_sharded_null"] = torch.equal(res.null, direct)
+    res_l = local.permutation_binary(plan_l, y, N_PERM, SEED)
+    m_te = folds.k * folds.test_size
+    vs_local = {"equal": int((res.null == res_l.null).sum()), "of": N_PERM,
+                "max_abs_diff": float((res.null - res_l.null).abs().max()),
+                "one_prediction": 1.0 / m_te, "observed_equal": torch.equal(res.observed,
+                                                                            res_l.observed)}
+    checks["engine_null_near_local"] = (vs_local["equal"] >= N_PERM - 1
+                                        and vs_local["max_abs_diff"] <= 1.0 / m_te + 1e-7
+                                        and vs_local["observed_equal"])
+    # the null streamed at chunk 250 (bucket 256) and at chunk 1,024 (one
+    # chunk, the monolithic width); bits follow the width (hat_apply's split
+    # count follows B), so the 256-wide chunks are held bit for bit to the
+    # local engine's stream at the same chunk, and to the monolithic null by
+    # the rule of the engines above
+    w = Workload(kind="permutation", dataset=handle, y=y, n_perm=N_PERM, seed=SEED)
+    events = step("stream_workload", lambda: list(stream_workload(
+        engine, w, chunk=DIST_STREAM_CHUNK)), {"hat_apply": 5, "foldsolve": 5})
+    events_1024 = step("stream_workload_1024", lambda: list(stream_workload(
+        engine, w, chunk=t_gen)), {"hat_apply": 2, "foldsolve": 2})
+    nulls = lambda evs: torch.cat([e.payload for e in evs if e.kind == "null"])
+    streamed = nulls(events)
+    local_stream = nulls(stream_workload(local, Workload(
+        kind="permutation", dataset=local.register(x, folds, lam), y=y, n_perm=N_PERM,
+        seed=SEED), chunk=DIST_STREAM_CHUNK))
+    vs_mono = {"equal": int((streamed == res.null).sum()), "of": N_PERM,
+               "max_abs_diff": float((streamed - res.null).abs().max())}
+    stream_diag = {"chunk_250_vs_monolithic": vs_mono,
+                   "chunk_250_vs_local_chunk_250_bit_equal": torch.equal(streamed, local_stream),
+                   "chunk_1024_vs_monolithic_bit_equal": torch.equal(nulls(events_1024),
+                                                                     res.null)}
+    checks["stream_250_equals_local_stream_250"] = stream_diag[
+        "chunk_250_vs_local_chunk_250_bit_equal"]
+    checks["stream_250_near_monolithic"] = (
+        torch.equal(events[-1].payload.null, streamed) and vs_mono["equal"] >= N_PERM - 1
+        and vs_mono["max_abs_diff"] <= 1.0 / m_te + 1e-7)
+    checks["stream_1024_equals_monolithic"] = (
+        stream_diag["chunk_1024_vs_monolithic_bit_equal"]
+        and torch.equal(events_1024[-1].payload.null, res.null))
+
+    # -- the kernels at this path's new shapes against their plain versions ----
+    # (launches: the path's at the shape; a window's Gram, centered as the
+    # path centers it; the 1,000-wide null of distributed_permutation_binary
+    # at one shard and the stream's 256-wide chunks)
+    te = plan.te_idx
+    k_te, m_te_ = te.shape
+    h_te = plan.h[te[:, :, None], te[:, None, :]]
+    perms = permutation.permutation_indices(SEED, n, N_PERM, device=dev)
+    xw = xs[0] - xs[0].mean(dim=0, keepdim=True)
+    err = rel_err(gram(xw), gram_ref(xw))
+    kernel_checks = [{"kernel": "gram", "case": f"a window X ({n}, {wp}) f32",
+                      "max_abs_err": err[0], "scale": err[1]}]
+    shapes = {"gram": [{"x": xw, "max_abs_err": err[0], "launches": sum(
+        v for (kn, a), v in by_shape.items() if kn == "gram" and a[:2] == (n, wp))}],
+        "hat_apply": [], "foldsolve": []}
+    for b_ in (N_PERM, 256):
+        yy = y[perms[:b_]].T.contiguous()
+        e = hat_errors(plan.h, yy)
+        err_h = rel_err(e, hat_apply_ref(plan.h, yy))
+        e_te = e[te]
+        err_f = rel_err(foldsolve(h_te, e_te, jitter=None), foldsolve_ref(h_te, e_te))
+        kernel_checks += [{"kernel": "hat_apply", "case": f"null B={b_}", "max_abs_err": err_h[0],
+                           "scale": err_h[1]},
+                          {"kernel": "foldsolve", "case": f"null B={b_}", "max_abs_err": err_f[0],
+                           "scale": err_f[1]}]
+        shapes["hat_apply"].append({"y": yy, "max_abs_err": err_h[0], "launches": sum(
+            v for (kn, a), v in by_shape.items() if kn == "hat_apply" and a[:2] == (n, b_))})
+        shapes["foldsolve"].append({"e_te": e_te, "max_abs_err": err_f[0], "launches": sum(
+            v for (kn, a), v in by_shape.items()
+            if kn == "foldsolve" and a[:3] == (k_te, m_te_, b_))})
+    for c in kernel_checks:
+        c["ok"] = c["max_abs_err"] <= TOL[torch.float32] * c["scale"]
+
+    dist.destroy_process_group()
+    store_dir.cleanup()
+    launches = {}
+    for v in steps.values():
+        launches = v if not launches else launch_sum(launches, v)
+    strip = lambda d: {k: v for k, v in d.items() if k != "calls"}
+    emit({"phase": "distributed", "backend": backend, "world_size": 1,
+          "mesh": {"shape": list(mesh.shape), "dims": list(mesh.mesh_dim_names)},
+          "N": n, "P": p, "K": folds.k, "lam": lam, "windows": DIST_WINDOWS,
+          "window_P": wp, "window_lam": lam_w, "conditions": c8, "n_perm": N_PERM,
+          "stream_chunk": DIST_STREAM_CHUNK, "seconds": secs,
+          "launches": {k: strip(v) for k, v in steps.items()}, "checks": checks,
+          "engine_vs_local": vs_local, "stream": stream_diag, "kernel_checks": kernel_checks,
+          "launches_by_shape": {k: [r["launches"] for r in v] for k, v in shapes.items()},
+          "searchlight_accuracy": acc.tolist(), "perm_observed": float(perm.observed),
+          "perm_p": float(perm.p)})
+    print(f"distributed: NCCL at world size 1; seconds "
+          f"{ {k: round(v, 4) for k, v in secs.items()} }; launches {strip(launches)}; "
+          f"mesh engine against local: {vs_local['equal']} of {N_PERM} equal", flush=True)
+    bad = [k for k, v in checks.items() if not v]
+    if bad:
+        fail(f"distributed: checks failed: {bad} (engine against local: {vs_local}; "
+             f"streams: {stream_diag})")
+    bad = [c["case"] for c in kernel_checks if not c["ok"]]
+    if bad:
+        fail(f"distributed: kernels disagree with their plain versions at {bad}")
+    for name, val in (("searchlight accuracies", acc), ("RDMs", rdms), ("null", perm.null)):
+        if not bool(torch.isfinite(val).all()):
+            fail(f"distributed: non-finite {name}")
+    if acc.shape != (DIST_WINDOWS,) or rdms.shape != (DIST_WINDOWS, c8, c8):
+        fail(f"distributed: shapes {tuple(acc.shape)}, {tuple(rdms.shape)}")
+    unlaunched = [k for k, v in shapes.items() for r in v if r["launches"] <= 0]
+    if unlaunched:
+        fail(f"distributed: no launch at the path's shapes of {unlaunched}")
+    return {"launches": launches, "seconds": secs, "plan": plan, "h_te": h_te,
+            "shapes": shapes}
+
+
 def _is_float(text: str) -> bool:
     try:
         float(text)
@@ -2117,6 +2356,7 @@ def main() -> None:
     upd = update_phase(x, x64, y, lam, x_more, y_more)
     srv = serve_phase(ds, x, y, folds, lam, md["lam"], x_more)
     htp = http_phase(srv, y, x_more, y_more)
+    dst = distributed_phase(ds, x, y, folds, lam)
     del x_more
     for k in ("engine", "handle", "batch", "first", "update"):
         srv.pop(k)
@@ -2485,7 +2725,8 @@ def main() -> None:
     ]
     by_path = {"binary": launches, "multiclass": launches_mc, "rsa": launches_rsa,
                "multidim": md["launches"], "tune": tune["launches"], "update": upd["launches"],
-               "serve": srv["launches"], "http": htp["launches"], "lm_serve": launches_serve,
+               "serve": srv["launches"], "http": htp["launches"],
+               "distributed": dst["launches"], "lm_serve": launches_serve,
                "lm_probe": launches_probe}
     # the new paths' shapes (launches: the path that runs the shape; the
     # fold_eval LOO rows run only in the tune phase's f64 check)
@@ -2552,6 +2793,44 @@ def main() -> None:
             "shape": f"serve {tag}: h_te ({ks_}, {ms_}, {ms_}), e ({ks_}, {ms_}, {bsv}) f32",
             "max_abs_err": sh["foldsolve_err"], "launches": sh["launches"]["foldsolve"],
             "launches_note": SERVE_SHAPE_NOTE, "tol": TOL[f32]})
+
+    # the distributed path's new shapes: a searchlight window's Gram, and
+    # hat_apply / foldsolve at the 1,000-wide null of one shard and the
+    # stream's 256-wide chunks (launches: the path's at the shape)
+    h_ds, hb_ds = dst["plan"].h, dst["h_te"]
+    kd_, md_ = dst["plan"].te_idx.shape
+    eye_ds = torch.eye(md_, device=dev).expand(kd_, md_, md_)
+    note_ds = "the distributed path's launches at this shape"
+    for sh in dst["shapes"]["gram"]:
+        xw, pw = sh["x"], sh["x"].shape[1]
+        new_rows.setdefault("gram", []).append({
+            "kernel": lambda xw=xw: gram(xw), "plain": lambda xw=xw: gram_ref(xw),
+            "library": lambda xw=xw: torch.mm(xw, xw.T),
+            "bytes": (n * pw + n * n) * f4, "flops": n * (n + 1) * pw, "dtype": "tf32",
+            "issued": 3 * n * (n + 1) * pw, "shape": f"distributed: a window X ({n}, {pw}) f32",
+            "max_abs_err": sh["max_abs_err"], "launches": sh["launches"],
+            "launches_note": note_ds, "tol": TOL[f32]})
+    for sh_h, sh_f in zip(dst["shapes"]["hat_apply"], dst["shapes"]["foldsolve"]):
+        yd, ed = sh_h["y"], sh_f["e_te"]
+        bd = yd.shape[1]
+        new_rows["hat_apply"].append({
+            "kernel": lambda yd=yd: hat_errors(h_ds, yd),
+            "plain": lambda yd=yd: hat_apply_ref(h_ds, yd),
+            "library": lambda yd=yd: torch.addmm(yd, h_ds, yd, alpha=-1.0),
+            "bytes": (n * n + 2 * n * bd) * f4, "flops": 2 * n * n * bd, "dtype": "tf32",
+            "shape": f"distributed: H ({n}, {n}), Y ({n}, {bd}) f32",
+            "max_abs_err": sh_h["max_abs_err"], "launches": sh_h["launches"],
+            "launches_note": note_ds, "tol": TOL[f32]})
+        new_rows["foldsolve"].append({
+            "kernel": lambda ed=ed: foldsolve(hb_ds, ed, jitter=None),
+            "on_path": lambda ed=ed: foldsolve(hb_ds, ed),
+            "plain": lambda ed=ed: foldsolve_ref(hb_ds, ed),
+            "library": lambda ed=ed: torch.linalg.solve(eye_ds - hb_ds, ed),
+            "bytes": (kd_ * md_ * md_ + 2 * kd_ * md_ * bd) * f4,
+            "flops": kd_ * (2 * md_ ** 3 / 3 + 2 * md_ * md_ * bd),
+            "shape": f"distributed: h_te ({kd_}, {md_}, {md_}), e ({kd_}, {md_}, {bd}) f32",
+            "max_abs_err": sh_f["max_abs_err"], "launches": sh_f["launches"],
+            "launches_note": note_ds, "tol": TOL[f32]})
 
     # the lm_probe path's own f64 shapes: 384 sequences of d_model 2,304
     # features, K = 6 folds of 64, permutation chunks of 64 labels (random

@@ -3,9 +3,11 @@
 Cross-validated condition dissimilarities (pairwise-contrast or confusion
 RDMs) from shared :class:`~repro_torch.core.fastcv.CVPlan` fold solves,
 model-RDM scoring with rank correlations and condition-permutation nulls,
-and pattern RDMs on the hand-written ``pairdist`` kernel.
+pattern RDMs on the hand-written ``pairdist`` kernel, and mesh-sharded
+searchlight sweeps.
 
-  rdm      empirical RDMs from CVPlan fold solves; pattern RDMs.
+  rdm      empirical RDMs from CVPlan fold solves; pattern RDMs;
+           searchlight sharding.
   compare  Spearman/Kendall/Pearson/cosine model scoring + permutation nulls.
 """
 
@@ -33,4 +35,5 @@ from repro_torch.rsa.rdm import (  # noqa: F401
     rdm_from_pair_values,
     rdm_multiclass,
     ring_rdm,
+    searchlight_rdm,
 )

@@ -22,8 +22,9 @@ empirical RDM is built from one shared :class:`~repro_torch.core.fastcv.CVPlan`:
 
 Non-cross-validated baselines (condition-mean Euclidean RDMs, also the
 usual way to *construct* model RDMs from feature embeddings) run on the
-hand-written ``pairdist`` kernel for a CUDA tensor. Mesh-sharded
-searchlight sweeps are not ported yet.
+hand-written ``pairdist`` kernel for a CUDA tensor. Searchlight sweeps,
+Q independent RDM problems, shard over a mesh's problem axes through
+:func:`repro_torch.core.distributed.sharded_problems`.
 """
 
 from __future__ import annotations
@@ -38,6 +39,7 @@ import numpy as np
 import torch
 
 from repro_torch.core import fastcv, metrics, multiclass
+from repro_torch.core.distributed import sharded_problems
 from repro_torch.core.folds import Folds
 from repro_torch.kernels.common import resolve_device
 from repro_torch.kernels.pairdist.ops import pairwise_sq_dists
@@ -54,6 +56,7 @@ __all__ = [
     "condition_means",
     "ring_rdm",
     "euclidean_rdm",
+    "searchlight_rdm",
     "make_eval_pairs",
 ]
 
@@ -279,6 +282,39 @@ def euclidean_rdm(patterns: torch.Tensor) -> torch.Tensor:
     """(C, C) squared-Euclidean RDM over row patterns: the ``pairdist``
     kernel for a CUDA tensor, its plain version for a CPU one."""
     return pairwise_sq_dists(patterns.contiguous())
+
+
+# ---------------------------------------------------------------------------
+# Searchlight sweeps: Q independent RDM problems over the mesh
+# ---------------------------------------------------------------------------
+
+
+def searchlight_rdm(
+    xs: torch.Tensor,
+    y_cond: torch.Tensor,
+    folds: Folds,
+    lam: float,
+    mesh,
+    *,
+    num_classes: int,
+    dissimilarity: str = "accuracy",
+    adjust_bias: bool = True,
+    mode: str = "auto",
+    problem_axes: tuple = ("pod", "data"),
+) -> torch.Tensor:
+    """Per-searchlight RDMs: xs (Q, N, P_local) → (Q, C, C).
+
+    Each problem builds its own plan and scores all pairwise contrasts on
+    its rank; problems shard over the mesh's problem axes with no traffic
+    between them (the ``core.distributed`` problem-axis decomposition,
+    paper §4.2). A collective call: see ``core.distributed``.
+    """
+
+    def one_problem(x):
+        return rdm_binary(x, y_cond, folds, num_classes, lam, dissimilarity=dissimilarity,
+                          adjust_bias=adjust_bias, mode=mode)
+
+    return sharded_problems(one_problem, xs, mesh, problem_axes=problem_axes)
 
 
 # ---------------------------------------------------------------------------

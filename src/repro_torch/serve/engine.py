@@ -66,8 +66,22 @@ How this package differs from the reference's ``serve/engine.py``:
   * **RNG.** Permutations are drawn from an integer seed by
     ``core.permutation.permutation_indices`` (prefix-stable), not by
     ``jax.random``.
-  * Meshes (``mesh``, ``feature_axis``, ``perm_axes``, the distributed
-    Gram, the sharded null) are not ported here.
+  * **Meshes.** ``EngineConfig.mesh`` takes a
+    ``torch.distributed.device_mesh.DeviceMesh`` on the engine's device
+    type, with ``feature_axis`` and ``perm_axes`` naming its dims. A mesh
+    engine builds dual plans through
+    :func:`repro_torch.core.distributed.distributed_gram` (the reference's
+    ``gram_impl="distributed"``; a feature axis of size 1 is the
+    reference's mesh with a local Gram, so there is no ``gram_impl``), and
+    :meth:`null_binary` shards each permutation batch over ``perm_axes``
+    through ``sharded_null_from_plan`` (padded with edge rows to a whole
+    number of shards, trimmed back), so ``permutation_binary`` and
+    ``workload.stream_workload`` take the mesh as the reference's do. A
+    mesh engine is a collective: every rank of the mesh runs its own
+    engine and serves the same traffic in the same order (see
+    ``core.distributed``). The edges (``api``, ``aio``, ``http``,
+    ``launch.serve_cv``) carry a mesh engine at world size 1, one card's
+    case; ``serve_cv`` has no mesh flag, as the reference's has none.
 
 :meth:`CVEngine.warmup` turns the lazy caches into an explicit readiness
 API: it pre-builds (and optionally pins) the plan for a dataset spec and
@@ -87,7 +101,7 @@ from typing import Optional, Sequence
 import numpy as np
 import torch
 
-from repro_torch.core import fastcv, metrics, multiclass, tuning
+from repro_torch.core import distributed, fastcv, metrics, multiclass, tuning
 from repro_torch.core import permutation as perm_lib
 from repro_torch.core.folds import Folds
 from repro_torch.kernels.common import default_fused, resolve_device
@@ -203,6 +217,11 @@ class EngineConfig:
                  it, never those pinned in the in-memory cache).
     device:      where plans, batches and results live; None = "cuda"
                  (raises without a card), "cpu" for the plain versions.
+    mesh:        optional ``DeviceMesh`` on the engine's device type:
+                 dual plans from the feature-sharded Gram, permutation
+                 batches sharded over the mesh (a collective engine).
+    feature_axis / perm_axes: the mesh dims of the feature-sharded Gram
+                 and of the permutation shards; both must be in the mesh.
     """
 
     cache_bytes: int = 512 << 20
@@ -212,12 +231,24 @@ class EngineConfig:
     save_plans: bool = False
     store_bytes: int = 4 << 30
     device: Optional[object] = None
+    mesh: Optional[object] = None
+    feature_axis: str = "model"
+    perm_axes: tuple = ("data",)
 
     def __post_init__(self):
         if self.save_plans and not self.plan_store:
             raise ValueError("save_plans=True requires a plan_store directory")
         if self.precision not in _PRECISIONS:
             raise ValueError(f"precision must be one of {_PRECISIONS}")
+        if self.mesh is not None:
+            if self.precision != "fp32":
+                raise ValueError(
+                    "precision='bf16_gram' is not supported with a mesh (the "
+                    "feature-sharded reduction has no mixed-precision path)")
+            names = tuple(self.mesh.mesh_dim_names or ())
+            missing = [a for a in (self.feature_axis, *self.perm_axes) if a not in names]
+            if missing:
+                raise ValueError(f"mesh dims {names} lack the axes {missing}")
 
 
 class CVEngine:
@@ -239,6 +270,10 @@ class CVEngine:
         if self.device.type == "cuda" and self.device.index is None:
             # one spelling of the device, so tensors already there compare equal
             self.device = torch.device("cuda", torch.cuda.current_device())
+        mesh = self.config.mesh
+        if mesh is not None and mesh.device_type != self.device.type:
+            raise ValueError(f"the mesh is on {mesh.device_type}, the engine on "
+                             f"{self.device.type}")
         self.cache = PlanCache(self.config.cache_bytes)
         self.store = (
             PlanStore(self.config.plan_store, byte_budget=self.config.store_bytes,
@@ -417,10 +452,14 @@ class CVEngine:
         with self.tracer.span("plan_build"):
             n, p = x.shape
             resolved = ("dual" if p >= n else "primal") if mode == "auto" else mode
+            gram = None
+            if self.config.mesh is not None and resolved == "dual":
+                gram = distributed.distributed_gram(x, self.config.mesh,
+                                                    feature_axis=self.config.feature_axis)
             plan = self.tracer.sync(
                 fastcv.prepare(
                     x, folds, lam, mode=resolved, with_train_block=with_train_block,
-                    precision=self.config.precision
+                    gram=gram, precision=self.config.precision
                 )
             )
         with self._lock:
@@ -1116,17 +1155,34 @@ class CVEngine:
         """Null metrics for an explicit (B, N) permutation batch → (B,).
 
         The chunk-level building block under both :meth:`permutation_binary`
-        and ``workload.stream_workload``. The batch pads up to a shape bucket, so
-        repeats serve no new shape.
+        and ``workload.stream_workload``. On a mesh engine the batch shards
+        over ``perm_axes`` through ``core.distributed.sharded_null_from_plan``
+        (padded with edge rows to a whole number of shards, trimmed back), so
+        streamed chunks take the mesh as monolithic requests do, with the
+        same draws. Locally the batch pads up to a shape bucket, so repeats
+        serve no new shape.
         """
         b = perms.shape[0]
+        mesh = self.config.mesh
         with self.tracer.span("null_chunk"):
             if not adjust_bias:
                 plan = self._strip_train(plan)
             y = self._on_device(y).to(plan.h.dtype)
-            fn = self._perm_binary_fn(metric, adjust_bias)
-            padded = self._pad_rows(self._on_device(perms))[0]
-            out = self.tracer.sync(fn(plan, y, padded)[:b])
+            perms = self._on_device(perms)
+            if mesh is not None:
+                shards = 1
+                for a in self.config.perm_axes:
+                    shards *= mesh.shape[mesh.mesh_dim_names.index(a)]
+                t_pad = -(-b // shards) * shards
+                if t_pad > b:
+                    perms = torch.cat([perms, perms[-1:].expand(t_pad - b, -1)])
+                out = distributed.sharded_null_from_plan(
+                    plan, y, perms, mesh, metric=metric, perm_axes=self.config.perm_axes,
+                    adjust_bias=adjust_bias)[:b]
+            else:
+                fn = self._perm_binary_fn(metric, adjust_bias)
+                out = fn(plan, y, self._pad_rows(perms)[0])[:b]
+            out = self.tracer.sync(out)
         with self._lock:
             self.labels_evaluated += b
         return out

@@ -811,3 +811,39 @@ def test_default_client_and_edge_take_the_card(gen):
     assert client.engine.device.type == "cuda" and client.engine._fused
     with EdgeThread() as edge:
         assert edge.engine.device.type == "cuda"
+
+
+def test_distributed_over_nccl_at_world_size_one(gen, tmp_path):
+    """core.distributed on a (1, 1) mesh of one NCCL rank: the feature-sharded
+    Gram is the gram kernel's centered Gram and the sharded null is the local
+    null, bit for bit (the same launches at the same widths)."""
+    import datetime
+
+    import torch.distributed as dist
+    from torch.distributed.device_mesh import init_device_mesh
+
+    from repro_torch.core import distributed as D
+    from repro_torch.core import permutation as perm_lib
+    from repro_torch.kernels.gram.ops import centered_gram
+
+    n, p, k, t = 300, 5000, 10, 64
+    torch.cuda.set_device(0)
+    dist.init_process_group("nccl", init_method=f"file://{tmp_path / 'store'}", rank=0,
+                            world_size=1, timeout=datetime.timedelta(seconds=60))
+    try:
+        mesh = init_device_mesh("cuda", (1, 1), mesh_dim_names=("data", "model"))
+        x = torch.randn(n, p, generator=gen, device="cuda")
+        y = torch.where(torch.arange(n, device="cuda") % 2 == 0, 1.0, -1.0)
+        x[:, :20] += 0.5 * y[:, None]
+        f = folds.kfold(n, k, seed=0, device="cuda")
+        g = _launched("gram", lambda: D.distributed_gram(x, mesh))
+        assert torch.equal(g, centered_gram(x))
+        plan = fastcv.prepare(x, f, float(torch.diagonal(g).mean()), mode="dual", gram=g)
+        perms = perm_lib.permutation_indices(0, n, t, device="cuda")
+        got = _launched("hat_apply", lambda: D.sharded_null_from_plan(plan, y, perms, mesh))
+        yp = y[perms].T.contiguous()
+        want = perm_lib._fold_metric_binary(fastcv.binary_dvals(plan, yp), yp[plan.te_idx],
+                                            "accuracy")
+        assert torch.equal(got, want)
+    finally:
+        dist.destroy_process_group()
