@@ -6,6 +6,14 @@ Run from the repository root, with another checkout unpacked beside it
 .archive/parent``):
 
     python3 chip_compare.py .archive/parent
+    python3 chip_compare.py --lm-decode .archive/parent
+
+The second form times gemma2-2b's greedy decode instead (full width and
+depth, random bf16 weights from the seed): ``serve.generate`` of 4 × 2,048
+prompt tokens + 64 decode steps, run twice, the second run's decode
+tokens/s; then ``chip_smoke.decode_idle_share`` (16 steps on the host clock,
+16 under torch.profiler: wall ms per step, device-busy ms per step, idle
+share).
 
 Each side runs in its own process (both packages are named
 ``repro_torch``), in the order other, this, this, other, on the same
@@ -137,16 +145,49 @@ def side(src: str) -> dict:
     return out
 
 
+def side_lm(src: str) -> dict:
+    """gemma2-2b's decode rate and idle share with one checkout's package (run
+    in a process of its own)."""
+    sys.path.insert(0, str(ROOT))
+    import torch
+
+    import chip_smoke as cs   # decode_idle_share; puts ROOT/src on the path
+    sys.path.insert(0, str(Path(src).resolve() / "src"))
+    import repro_torch
+    from repro_torch.configs.base import get_config
+    from repro_torch.launch import serve
+    from repro_torch.models import model as M
+
+    if not torch.cuda.is_available():
+        raise SystemExit("chip_compare: no CUDA device")
+    cfg = get_config(cs.LM_ARCH)
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(cs.SEED)
+    model = M.init_params(cfg, generator=gen, device="cuda")
+    prompts = torch.randint(0, cfg.vocab_size, (cs.LM_BATCH, cs.LM_PROMPT), generator=gen,
+                            device="cuda")
+    for _ in range(2):             # the first run builds the kernel and warms up
+        ids, st = serve.generate(model, prompts, cs.LM_DECODE + 1, cfg)
+    return {"package": str(Path(repro_torch.__file__).parent.parent.parent),
+            "arch": cfg.name, "decode_steps": cs.LM_DECODE,
+            "decode_s": st["decode_s"], "decode_tokens_per_s": st["tokens_per_s"],
+            "first_ids": ids.flatten()[:8].tolist(),
+            "idle": cs.decode_idle_share(model, prompts, cfg)}
+
+
 def main() -> None:
-    if len(sys.argv) == 3 and sys.argv[1] == "--side":
-        print(json.dumps(side(sys.argv[2])), flush=True)
+    if len(sys.argv) == 3 and sys.argv[1] in ("--side", "--side-lm"):
+        fn = side if sys.argv[1] == "--side" else side_lm
+        print(json.dumps(fn(sys.argv[2])), flush=True)
         return
-    if len(sys.argv) != 2:
-        raise SystemExit("usage: python3 chip_compare.py OTHER_CHECKOUT")
-    other = sys.argv[1]
+    lm = sys.argv[1:2] == ["--lm-decode"]
+    args = sys.argv[2:] if lm else sys.argv[1:]
+    if len(args) != 1:
+        raise SystemExit("usage: python3 chip_compare.py [--lm-decode] OTHER_CHECKOUT")
+    other = args[0]
     for src in (other, str(ROOT), str(ROOT), other):
-        run = subprocess.run([sys.executable, __file__, "--side", src], capture_output=True,
-                             text=True)
+        run = subprocess.run([sys.executable, __file__, "--side-lm" if lm else "--side", src],
+                             capture_output=True, text=True)
         if run.returncode != 0:
             raise SystemExit(f"chip_compare: the side {src} failed:\n{run.stderr[-3000:]}")
         print(run.stdout.strip().splitlines()[-1], flush=True)

@@ -79,10 +79,41 @@ random weights from a seed):
 * lm_probe: ``launch.probe`` on 2 × 192 sequences of 128 tokens: the
   residual stream after each of the 13 repeats, an analytical-CV
   permutation test (K = 6, T = 1,000, f64, λ = tr(G_c)/N of each point) on
-  each.
+  each;
+
+then, with gemma2-2b freed, the MoE and RG-LRU trunks at full width (bf16,
+random weights from a seed), each against the same weights on attention_ref
+and an f32 copy of them (the yardstick), one model on the card at a time:
+
+* lm_moe: olmoe-1b-7b at full depth (16 layers, d_model 2,048, 16 heads of
+  128, 64 experts top-8): ``launch.serve.generate`` (4 × 2,048 + 64 greedy
+  steps), an 8,192-token ``prefill_step`` (two dispatch groups), both
+  lengths against attention_ref, the dropped choices per layer at 4 × 2,048,
+  decode against the forward over 256 tokens at the no-drop capacity factor
+  E/k (the bf16 forward's routing imposed, decode's own route run beside:
+  its experts may differ from the forward's in at most 2× the share of
+  (token, layer) pairs where the f32 forward's do, every choice kept in
+  slot 0), the f32 copy's freely routed decode over 32 tokens against its
+  forward; then its probe (lm_moe_probe, 16 points);
+* lm_moe_qwen3: qwen3-moe-30b-a3b at full width (32 / 4 heads of 128, 128
+  experts top-8, d_ff 768, vocabulary 151,936), 16 of its 48 layers: a
+  4 × 2,048 prefill against attention_ref, decode against the forward over
+  64 tokens at the no-drop factor (with the same routing checks), its peak
+  memory and how many more layers would fit;
+* lm_hybrid: recurrentgemma-2b at full depth (26 layers, 8 of them local
+  MQA attention of 10 query heads on 1 KV head of 256, window 2,048;
+  RG-LRU width 2,560; vocabulary 256,000): a 4 × 2,048 ``prefill_step``
+  against attention_ref, decode from an empty state against the forward over
+  256 tokens in bf16 and in f32, ``launch.serve.generate``'s refusal (prefill
+  returns no recurrent state); then its probe (lm_hybrid_probe, 8 points);
+
+and, after the build, ``python -m repro_torch.analysis`` (lint: reprolint
+for the port) as a process, which must exit 0.
 
 Each path's launch counts are reset before it and read after it; every
-kernel the path should run must have launched (the multidim, tune and
+kernel the path should run must have launched (flash_attention exactly once
+per attention layer in each prefill and forward of the MoE and hybrid
+trunks, never in their decode) (the multidim, tune and
 update paths exactly as often as their calls make: 301 hat_apply and
 foldsolve, one gram a tuning call, none in an update; the serve path's
 warm-up, first batch, update and replay as predicted) (flash_attention exactly
@@ -148,8 +179,10 @@ line. Without a CUDA device, or without the package beside it, it fails.
 from __future__ import annotations
 
 import collections
+import contextlib
 import dataclasses
 import json
+import os
 import re
 import statistics
 import subprocess
@@ -228,6 +261,16 @@ LM_LONG = 8192                                     # q − k reaches 8,191 > the
 LM_REPLAY = 256                                    # decode replay against the forward
 LM_RING_WINDOW = 64                                # a window the 256-token replay wraps 4×
 LM_IDLE_STEPS = 16                                 # decode steps timed, then profiled
+# The MoE and RG-LRU trunks at full width: olmoe-1b-7b and recurrentgemma-2b at
+# full depth, qwen3-moe-30b-a3b cut to QWEN_LAYERS of its 48 layers: its bf16
+# weights and their f32 copy, the yardstick, take 3.5 GiB a layer, and at 16
+# layers the phase peaks at 66.8 GiB reserved of the card's 79.2 (measured on
+# an H100 80GB), which leaves the run's other tensors and the allocator ~12 GiB.
+LM_MOE_ARCH, LM_QWEN_ARCH, LM_HYBRID_ARCH = "olmoe-1b-7b", "qwen3-moe-30b-a3b", \
+    "recurrentgemma-2b"
+QWEN_LAYERS = 16
+QWEN_REPLAY = 64                                   # qwen3's decode replay, tokens
+MOE_FREE_REPLAY = 32     # tokens of the f32 copies' freely routed MoE decode
 # λ per point = tr(G_c)/N of that point's features (the MEG/EEG paths' rule):
 # the residual stream's scale grows about 19× from the first to the last point
 PROBE_PER_CLASS, PROBE_SEQ, PROBE_FOLDS = 192, 128, 6
@@ -251,7 +294,13 @@ TOL_LM_YARDSTICK = 2.0
 TOL_LM_F32 = 1e-4
 
 
+T_START = time.perf_counter()
+
+
 def emit(obj) -> None:
+    """One JSON line; a phase's line carries the run's seconds so far ("t")."""
+    if "phase" in obj:
+        obj = {**obj, "t": time.perf_counter() - T_START}
     print(json.dumps(obj), flush=True)
 
 
@@ -1883,8 +1932,16 @@ def lm_serve_phase(dev):
     return model, cfg, launches
 
 
-def lm_probe_phase(model, cfg, dev):
-    """launch.probe at full width: 13 points of the residual stream, an
+def attention_layers(cfg, n_layers=None) -> int:
+    """Layers among the first ``n_layers`` (default: all) that run the flash
+    kernel in a prefill or forward."""
+    kinds = cfg.layer_kinds[:n_layers] if n_layers is not None else cfg.layer_kinds
+    return sum(kind in ("attn", "local") for kind in kinds)
+
+
+def lm_probe_phase(model, cfg, dev, phase="lm_probe"):
+    """launch.probe at full width: a point of the residual stream per repeat
+    of the layer pattern (gemma2-2b 13, olmoe 16, recurrentgemma 8), an
     analytical-CV permutation test on each (f64)."""
     from repro_torch.core import fastcv, folds as folds_mod
     from repro_torch.kernels import _build
@@ -1905,7 +1962,7 @@ def lm_probe_phase(model, cfg, dev):
     dv_k = fastcv.binary_dvals(plan, y, fused=True)
     dv_c = fastcv.binary_dvals(plan, y, fused=False)
     e_dv, s_dv = rel_err(dv_k, dv_c)
-    emit({"phase": "lm_probe", "arch": cfg.name, "N": n, "seq": PROBE_SEQ,
+    emit({"phase": phase, "arch": cfg.name, "N": n, "seq": PROBE_SEQ,
           "points": feats.shape[0], "P": feats.shape[2], "dtype": "float64", "K": PROBE_FOLDS,
           "lam": lams, "n_perm": N_PERM,
           "accuracy": [float(r.observed) for r in results],
@@ -1914,24 +1971,490 @@ def lm_probe_phase(model, cfg, dev):
           "kernel_vs_composite_point0": {"max_abs_err": e_dv, "scale": s_dv,
                                          "tol": TOL[torch.float64]},
           "seconds": {"hidden_states": t_feats, "probes": t_probe}, "launches": launches})
-    if feats.shape != (cfg.num_layers // len(cfg.layer_pattern), n, cfg.d_model):
-        fail(f"probe features of shape {tuple(feats.shape)}")
+    points = cfg.num_layers // len(cfg.layer_pattern)
+    if feats.shape != (points, n, cfg.d_model):
+        fail(f"{phase}: probe features of shape {tuple(feats.shape)}")
     if not bool(torch.isfinite(feats).all()):
-        fail("non-finite probe features")
+        fail(f"{phase}: non-finite probe features")
     for r in results:
         if r.null.shape != (N_PERM,) or not bool(torch.isfinite(r.null).all()) \
                 or not 0.0 < float(r.p) <= 1.0:
-            fail("probe permutation results out of shape or range")
-    if launches["flash_attention"] != cfg.num_layers:
-        fail(f"probe forward launched flash_attention {launches['flash_attention']} times, "
-             f"want {cfg.num_layers}")
-    expect_launches("probe", launches, ("gram", "hat_apply", "foldsolve"))
+            fail(f"{phase}: probe permutation results out of shape or range")
+    want_flash = attention_layers(cfg, points * len(cfg.layer_pattern))
+    if launches["flash_attention"] != want_flash:
+        fail(f"{phase}: the probe forward launched flash_attention "
+             f"{launches['flash_attention']} times, want {want_flash}")
+    expect_launches(phase, launches, ("gram", "hat_apply", "foldsolve"))
     if launches["foldsolve"] != launches["hat_apply"]:
-        fail(f"probe: {launches['foldsolve']} foldsolve launches for "
+        fail(f"{phase}: {launches['foldsolve']} foldsolve launches for "
              f"{launches['hat_apply']} hat_apply launches, want one each per permutation chunk")
     if e_dv > TOL[torch.float64] * s_dv:
-        fail("probe decision values disagree with the f64 composite route")
+        fail(f"{phase}: probe decision values disagree with the f64 composite route")
     return launches
+
+
+def f32_twin(model, cfg, dev):
+    """An f32 copy of ``model``'s weights (the yardstick's model)."""
+    from repro_torch.models import model as M
+
+    cfg32 = dataclasses.replace(cfg, dtype="float32", param_dtype="float32")
+    model32 = M.Model(cfg32, dev)
+    for p32, p in zip(model32.parameters(), model.parameters(), strict=True):
+        p32.copy_(p)
+    return model32, cfg32
+
+
+def on_attention_ref(fn):
+    """``fn()`` with the models' attention on attention_ref instead of the
+    flash kernel."""
+    from repro_torch.kernels.flash_attention.ref import attention_ref
+    from repro_torch.models import layers
+
+    kernel = layers.flash_attention
+    layers.flash_attention = attention_ref
+    try:
+        return fn()
+    finally:
+        layers.flash_attention = kernel
+
+
+class Routing:
+    """moe.route's discrete decisions (experts, slots, kept choices) recorded
+    in one run and imposed on the runs compared with it. With random weights
+    a router's top-k choices and the capacity drops that follow from them
+    flip under any perturbation (a bf16 rounding, another summation order):
+    a flip is a discontinuity that no tolerance bounds, and it hides what the
+    comparison is there to see. Imposed, each run routes every token alike
+    and computes its own gates from its own router probabilities; its own
+    route still runs beside, and what it would have picked is kept
+    (``imposed`` yields the list) for ``flips``."""
+
+    def __init__(self):
+        self.calls = []
+
+    @contextlib.contextmanager
+    def recording(self):
+        from repro_torch.models import moe
+
+        route = moe.route
+
+        def record(p, x, c):
+            out = route(p, x, c)
+            self.calls.append(out[1:4])
+            return out
+
+        moe.route = record
+        try:
+            yield
+        finally:
+            moe.route = route
+
+    @contextlib.contextmanager
+    def imposed(self, decode_layers=None):
+        """Impose the recorded calls in order; with ``decode_layers`` (L) the
+        record is one forward over T tokens and the run T decode steps: call j
+        takes layer j % L's choices of token j // L, each kept in slot 0.
+        Yields a list that gains, per call, the run's own (expert, slot, kept)
+        and the imposed expert."""
+        from repro_torch.models import moe
+
+        route, count, own = moe.route, [0], []
+
+        def impose(p, x, c):
+            j = count[0]
+            count[0] += 1
+            if decode_layers is None:
+                expert, slot, kept = self.calls[j]
+            else:
+                t = j // decode_layers
+                expert = self.calls[j % decode_layers][0][:, t:t + 1]
+                slot, kept = torch.zeros_like(expert), torch.ones_like(expert, dtype=torch.bool)
+            own.append((*route(p, x, c)[1:4], expert))
+            gates = torch.softmax(x.float() @ p.router, dim=-1).gather(-1, expert)
+            # the aux loss of an imposed run is not compared: zero
+            return (gates / gates.sum(dim=-1, keepdim=True), expert, slot, kept,
+                    torch.zeros((), device=x.device))
+
+        moe.route = impose
+        try:
+            yield own
+        finally:
+            moe.route = route
+
+
+def flips(own) -> tuple:
+    """(token-layer pairs, pairs whose own top-k expert set differs from the
+    imposed one) over ``Routing.imposed``'s list."""
+    pairs = flipped = 0
+    for expert, _, _, want in own:
+        d = (expert.sort(dim=-1).values != want.sort(dim=-1).values).any(dim=-1)
+        pairs, flipped = pairs + d.numel(), flipped + int(d.sum())
+    return pairs, flipped
+
+
+def routed(pin, fn, own=None, **kw):
+    """``fn()`` with ``pin``'s routing imposed (no pin: as it comes); the run's
+    own picks extend ``own``."""
+    if pin is None:
+        return fn()
+    with pin.imposed(**kw) as picks:
+        out = fn()
+    if own is not None:
+        own.extend(picks)
+    return out
+
+
+def versus_attention_ref(model, cfg, model32, cfg32, batches: dict) -> dict:
+    """Last-position logits of each token batch on the flash kernel against the
+    same weights on attention_ref, within TOL_LM_YARDSTICK × the plain bf16
+    model's distance from the plain f32 one (as lm_serve holds gemma2-2b);
+    the f32 copy on the kernel against attention_ref at TOL_LM_F32. An MoE
+    trunk's four runs take the bf16 kernel run's routing (``Routing``)."""
+    from repro_torch.models import model as M
+
+    out = {}
+    for name, toks in batches.items():
+        pin = Routing() if cfg.moe_experts else None
+        if pin is None:
+            flash = M.prefill_step(model, {"tokens": toks}, cfg)[0]
+        else:
+            with pin.recording():
+                flash = M.prefill_step(model, {"tokens": toks}, cfg)[0]
+        runs = {"flash32": lambda: M.prefill_step(model32, {"tokens": toks}, cfg32)[0],
+                "plain": lambda: on_attention_ref(
+                    lambda: M.prefill_step(model, {"tokens": toks}, cfg)[0]),
+                "plain32": lambda: on_attention_ref(
+                    lambda: M.prefill_step(model32, {"tokens": toks}, cfg32)[0])}
+        got = {k: routed(pin, fn) for k, fn in runs.items()}
+        err, scale = rel_err(flash, got["plain"])
+        yard = rel_err(got["plain"], got["plain32"])[0]
+        err32, scale32 = rel_err(got["flash32"], got["plain32"])
+        tol = max(TOL_LM_YARDSTICK * yard, TOL_LM_F32 * scale)
+        out[name] = {"max_abs_err": err, "scale": scale, "plain_vs_f32": yard,
+                     "flash_vs_f32": rel_err(flash, got["plain32"])[0], "tol": tol,
+                     "f32_flash_vs_f32_plain": err32, "f32_scale": scale32,
+                     "f32_tol": TOL_LM_F32 * scale32,
+                     "argmax_agreement": float((flash.argmax(-1) == got["plain"].argmax(-1))
+                                               .float().mean()),
+                     "ok": (err <= tol and err32 <= TOL_LM_F32 * scale32
+                            and bool(torch.isfinite(flash).all()))}
+        if pin is not None:
+            out[name]["routing"] = "imposed from the bf16 kernel run"
+            out[name]["dropped_choices_per_layer"] = [int((~kept).sum())
+                                                      for _, _, kept in pin.calls]
+        del flash, got
+    return out
+
+
+def decode_versus_forward(model, cfg, model32, cfg32, tokens, dev, f32: bool) -> dict:
+    """Decode every position of ``tokens`` (1, T) from empty caches against the
+    model's own forward: bf16 within TOL_LM_YARDSTICK × the forward's
+    distance from the f32 copy's forward on attention_ref; with ``f32`` also
+    the f32 copy's decode against its forward at TOL_LM_F32. An MoE trunk's
+    runs take the bf16 forward's routing (``Routing``); decode's own route
+    runs beside, and its picks must differ from the forward's in no more
+    than TOL_LM_YARDSTICK × the share of (token, layer) pairs where the f32
+    forward's own picks differ, with every choice kept in slot 0 (capacity
+    at S = 1); then ``moe_free_decode``."""
+    from repro_torch.models import model as M
+
+    pin = Routing() if cfg.moe_experts else None
+    if pin is None:
+        full = M.forward(model, tokens, cfg)[0]
+    else:
+        with pin.recording():
+            full = M.forward(model, tokens, cfg)[0]
+    steps = {"decode_layers": cfg.num_layers} if pin is not None else {}
+    own32, own_dec = [], []
+    ref32 = routed(pin, lambda: on_attention_ref(lambda: M.forward(model32, tokens, cfg32)[0]),
+                   own=own32)
+    (dec, flash_n), secs = timed(lambda: routed(
+        pin, lambda: decode_replay(model, tokens, cfg, dev), own=own_dec, **steps))
+    err, scale = rel_err(dec, full)
+    yard = rel_err(full, ref32)[0]
+    tol = max(TOL_LM_YARDSTICK * yard, TOL_LM_F32 * scale)
+    out = {"tokens": tokens.shape[1], "max_abs_err": err, "scale": scale,
+           "forward_vs_f32": yard, "tol": tol, "seconds": secs,
+           "tokens_per_s": tokens.shape[1] / secs,
+           "argmax_agreement": float((dec.argmax(-1) == full.argmax(-1)).float().mean()),
+           "ok": err <= tol and bool(torch.isfinite(dec).all())}
+    if pin is not None:
+        pairs, flipped = flips(own_dec)
+        pairs32, flipped32 = flips(own32)
+        share_tol = max(TOL_LM_YARDSTICK * flipped32 / pairs32, 1 / pairs)
+        slot0 = all(not bool(slot.any()) and bool(kept.all()) for _, slot, kept, _ in own_dec)
+        out["routing"] = "imposed from the bf16 forward"
+        out["decode_own_routing"] = {
+            "pairs": pairs, "flipped": flipped, "share": flipped / pairs,
+            "f32_forward_flipped": flipped32, "f32_forward_share": flipped32 / pairs32,
+            "tol_share": share_tol, "all_kept_in_slot_0": slot0,
+            "ok": flipped / pairs <= share_tol and slot0}
+        out["ok"] = out["ok"] and out["decode_own_routing"]["ok"]
+    del full, ref32, dec
+    if f32:
+        full32 = routed(pin, lambda: M.forward(model32, tokens, cfg32)[0])
+        dec32, n32 = routed(pin, lambda: decode_replay(model32, tokens, cfg32, dev), **steps)
+        e32, s32 = rel_err(dec32, full32)
+        flash_n += n32
+        out["f32"] = {"max_abs_err": e32, "scale": s32, "tol": TOL_LM_F32 * s32,
+                      "argmax_agreement": float((dec32.argmax(-1) == full32.argmax(-1))
+                                                .float().mean()),
+                      "ok": e32 <= TOL_LM_F32 * s32 and bool(torch.isfinite(dec32).all())}
+        out["ok"] = out["ok"] and out["f32"]["ok"]
+        del full32, dec32
+    if pin is not None:
+        out["f32_free"], n32 = moe_free_decode(model32, cfg32, tokens[:, :MOE_FREE_REPLAY], dev)
+        flash_n += n32
+        out["ok"] = out["ok"] and out["f32_free"]["ok"]
+    out["flash_launches"] = flash_n
+    return out
+
+
+def moe_free_decode(model32, cfg32, tokens, dev) -> tuple:
+    """The f32 copy's decode over ``tokens`` (1, T) with its own routing (top-k,
+    the S = 1 capacity, slots, kept mask, gates) against its forward, both
+    routed freely: logits within TOL_LM_F32 at every token before the first
+    one whose experts differ from the forward's at some layer (an f32 near
+    tie; all T tokens without one), and at least half the tokens compared.
+    Returns (the comparison, flash launches)."""
+    from repro_torch.models import model as M
+
+    fwd, dec = Routing(), Routing()
+    with fwd.recording():
+        full = M.forward(model32, tokens, cfg32)[0]
+    with dec.recording():
+        out, n = decode_replay(model32, tokens, cfg32, dev)
+    n_layers, flipped, slot0 = cfg32.num_layers, [], True
+    for j, (expert, slot, kept) in enumerate(dec.calls):
+        t, layer = divmod(j, n_layers)
+        want = fwd.calls[layer][0][:, t:t + 1]
+        if not torch.equal(expert.sort(dim=-1).values, want.sort(dim=-1).values):
+            flipped.append(t)
+        slot0 = slot0 and not bool(slot.any()) and bool(kept.all())
+    first = min(flipped, default=tokens.shape[1])
+    err, scale = rel_err(out[:, :first], full[:, :first]) if first else (float("nan"), 0.0)
+    return {"tokens": tokens.shape[1], "pairs": len(dec.calls), "flipped": len(flipped),
+            "tokens_compared": first, "max_abs_err": err, "scale": scale,
+            "tol": TOL_LM_F32 * scale, "all_kept_in_slot_0": slot0,
+            "ok": (2 * first >= tokens.shape[1] and err <= TOL_LM_F32 * scale and slot0
+                   and bool(torch.isfinite(out).all()))}, n
+
+
+def no_drop(cfg):
+    """``cfg`` at the MoE capacity factor E/k: capacity S, no choice dropped,
+    so decode (which never drops) equals the forward."""
+    return dataclasses.replace(cfg, moe_capacity_factor=cfg.moe_experts / cfg.moe_top_k)
+
+
+def lm_moe_phase(dev):
+    """olmoe-1b-7b at full width and depth: serve.generate (4 × 2,048 + 64
+    greedy steps), an 8,192-token prefill (two dispatch groups of 4,096), both
+    against attention_ref and the f32 yardstick, the dropped choices per
+    layer, decode against the forward at the no-drop factor; then its probe."""
+    from repro_torch.configs.base import get_config
+    from repro_torch.kernels import _build
+    from repro_torch.launch import serve
+    from repro_torch.models import model as M
+
+    cfg = get_config(LM_MOE_ARCH)
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(SEED)
+    model, t_init = timed(lambda: M.init_params(cfg, generator=gen, device=dev))
+    prompts = torch.randint(0, cfg.vocab_size, (LM_BATCH, LM_PROMPT), generator=gen, device=dev)
+    long_prompt = torch.randint(0, cfg.vocab_size, (1, LM_LONG), generator=gen, device=dev)
+    n_attn = attention_layers(cfg)
+
+    reset_counts()
+    (ids, st), t_serve = timed(lambda: serve.generate(model, prompts, LM_DECODE + 1, cfg))
+    launches = counts()
+    torch.cuda.reset_peak_memory_stats()
+    _build.reset_launches()
+    (last_long, caches_long), t_long = timed(
+        lambda: M.prefill_step(model, {"tokens": long_prompt}, cfg))
+    launches_long = dict(_build.LAUNCHES)
+    peak_long = torch.cuda.max_memory_allocated()
+    del caches_long, last_long
+    model32, cfg32 = f32_twin(model, cfg, dev)
+    vs_ref = versus_attention_ref(model, cfg, model32, cfg32,
+                                  {f"{LM_BATCH}x{LM_PROMPT}": prompts, f"1x{LM_LONG}": long_prompt})
+    drops = vs_ref[f"{LM_BATCH}x{LM_PROMPT}"]["dropped_choices_per_layer"]
+    dec = decode_versus_forward(model, no_drop(cfg), model32, no_drop(cfg32),
+                                long_prompt[:, :LM_REPLAY], dev, f32=False)
+    del model32
+    e, k = cfg.moe_experts, cfg.moe_top_k
+    emit({"phase": "lm_moe", "arch": cfg.name, "layers": cfg.num_layers,
+          "d_model": cfg.d_model, "heads": [cfg.num_heads, cfg.num_kv_heads],
+          "head_dim": cfg.head_dim, "experts": e, "top_k": k, "d_ff": cfg.d_ff,
+          "vocab": cfg.vocab_size, "dtype": cfg.dtype, "params": M.count_params(model),
+          "seconds_init": t_init,
+          "serve": {"batch": LM_BATCH, "prompt": LM_PROMPT, "decode_steps": LM_DECODE,
+                    "prefill_s": st["prefill_s"], "decode_s": st["decode_s"],
+                    "decode_tokens_per_s": st["tokens_per_s"],
+                    "cache_mib": st["cache_bytes"] / 2**20, "seconds": t_serve,
+                    "first_ids": ids.flatten()[:16].tolist(), "launches": launches},
+          "long_prefill": {"tokens": LM_LONG, "dispatch_groups": LM_LONG // 4096,
+                           "seconds": t_long, "launches": launches_long,
+                           "peak_memory_gib": peak_long / 2**30},
+          "dropped_choices_per_layer": {
+              "tokens": f"{LM_BATCH}x{LM_PROMPT}", "capacity_factor": cfg.moe_capacity_factor,
+              "capacity": int(LM_PROMPT * k * cfg.moe_capacity_factor / e),
+              "choices_per_layer": LM_BATCH * LM_PROMPT * k, "dropped": drops},
+          "vs_attention_ref": vs_ref,
+          "decode_vs_forward": {"capacity_factor": e / k, **dec}})
+    if launches["flash_attention"] != n_attn or launches_long["flash_attention"] != n_attn:
+        fail(f"lm_moe: flash_attention launches per prefill {launches['flash_attention']} and "
+             f"{launches_long['flash_attention']}, want {n_attn} (and none in decode)")
+    if dec["flash_launches"]:
+        fail(f"lm_moe: decode launched flash_attention {dec['flash_launches']} times")
+    if ids.shape != (LM_BATCH, LM_DECODE + 1) or not bool(((ids >= 0) &
+                                                           (ids < cfg.vocab_size)).all()):
+        fail("lm_moe: generated ids out of shape or range")
+    if len(drops) != cfg.num_layers:
+        fail(f"lm_moe: {len(drops)} MoE dispatches counted in one prefill, want "
+             f"{cfg.num_layers}")
+    bad = [name for name, v in vs_ref.items() if not v["ok"]]
+    if bad:
+        fail(f"lm_moe: last-position logits disagree with the attention_ref model at {bad}")
+    if not dec["ok"]:
+        fail("lm_moe: decode disagrees with the forward at the no-drop factor")
+    launches_probe = lm_probe_phase(model, cfg, dev, phase="lm_moe_probe")
+    return launches, launches_probe
+
+
+def lm_qwen_phase(dev):
+    """qwen3-moe-30b-a3b at full width (32 / 4 heads of 128, 128 experts top-8,
+    d_ff 768, vocabulary 151,936), cut to QWEN_LAYERS layers: one 4 × 2,048
+    prefill against attention_ref and the f32 yardstick, decode against the
+    forward over QWEN_REPLAY tokens at the no-drop factor."""
+    from repro_torch.configs.base import get_config
+    from repro_torch.models import model as M
+
+    cfg = dataclasses.replace(get_config(LM_QWEN_ARCH), num_layers=QWEN_LAYERS)
+    torch.cuda.reset_peak_memory_stats()
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(SEED + 2)
+    model, t_init = timed(lambda: M.init_params(cfg, generator=gen, device=dev))
+    prompts = torch.randint(0, cfg.vocab_size, (LM_BATCH, LM_PROMPT), generator=gen, device=dev)
+    replay = torch.randint(0, cfg.vocab_size, (1, QWEN_REPLAY), generator=gen, device=dev)
+    n_attn = attention_layers(cfg)
+    reset_counts()
+    (_, caches), t_prefill = timed(lambda: M.prefill_step(model, {"tokens": prompts}, cfg))
+    launches = counts()
+    del caches
+    model32, cfg32 = f32_twin(model, cfg, dev)
+    vs_ref = versus_attention_ref(model, cfg, model32, cfg32,
+                                  {f"{LM_BATCH}x{LM_PROMPT}": prompts})
+    drops = vs_ref[f"{LM_BATCH}x{LM_PROMPT}"]["dropped_choices_per_layer"]
+    dec = decode_versus_forward(model, no_drop(cfg), model32, no_drop(cfg32), replay, dev,
+                                f32=False)
+    # what one more layer would add: its bf16 and f32 weights and the f32
+    # copy's prefill K/V
+    layer_bytes = sum(q.numel() * q.element_size() for m in (model, model32)
+                      for q in m.blocks.layers[0].parameters()) + \
+        2 * LM_BATCH * LM_PROMPT * cfg.num_kv_heads * cfg.head_dim * 4
+    peak, reserved = torch.cuda.max_memory_allocated(), torch.cuda.max_memory_reserved()
+    total = torch.cuda.mem_get_info()[1]
+    del model32
+    e, k = cfg.moe_experts, cfg.moe_top_k
+    emit({"phase": "lm_moe_qwen3", "arch": cfg.name,
+          "memory": {"peak_allocated_gib": peak / 2**30, "peak_reserved_gib": reserved / 2**30,
+                     "card_gib": total / 2**30, "gib_per_layer": layer_bytes / 2**30,
+                     "more_layers_that_fit": int((total - reserved) // layer_bytes)},
+          "layers": [cfg.num_layers, get_config(LM_QWEN_ARCH).num_layers],
+          "d_model": cfg.d_model, "heads": [cfg.num_heads, cfg.num_kv_heads],
+          "head_dim": cfg.head_dim, "experts": e, "top_k": k, "d_ff": cfg.d_ff,
+          "vocab": cfg.vocab_size, "dtype": cfg.dtype, "params": M.count_params(model),
+          "seconds_init": t_init,
+          "prefill": {"tokens": f"{LM_BATCH}x{LM_PROMPT}", "seconds": t_prefill,
+                      "launches": launches},
+          "dropped_choices_per_layer": {
+              "capacity": int(LM_PROMPT * k * cfg.moe_capacity_factor / e),
+              "choices_per_layer": LM_BATCH * LM_PROMPT * k, "dropped": drops},
+          "vs_attention_ref": vs_ref,
+          "decode_vs_forward": {"capacity_factor": e / k, **dec}})
+    if launches["flash_attention"] != n_attn or dec["flash_launches"]:
+        fail(f"lm_moe_qwen3: flash_attention launches {launches['flash_attention']} per "
+             f"prefill (want {n_attn}), {dec['flash_launches']} in decode (want 0)")
+    bad = [name for name, v in vs_ref.items() if not v["ok"]]
+    if bad or not dec["ok"]:
+        fail(f"lm_moe_qwen3: disagrees with the attention_ref model at {bad} or decode "
+             f"with the forward (ok={dec['ok']})")
+    return launches
+
+
+def lm_hybrid_phase(dev):
+    """recurrentgemma-2b at full width and depth (26 layers: 18 RG-LRU, 8
+    local MQA attention): a 4 × 2,048 prefill_step against attention_ref and
+    the f32 yardstick, decode from an empty state against the forward over
+    256 tokens in bf16 and in f32, serve.generate's refusal; then its
+    probe."""
+    from repro_torch.configs.base import get_config
+    from repro_torch.launch import serve
+    from repro_torch.models import model as M
+
+    cfg = get_config(LM_HYBRID_ARCH)
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(SEED + 3)
+    model, t_init = timed(lambda: M.init_params(cfg, generator=gen, device=dev))
+    prompts = torch.randint(0, cfg.vocab_size, (LM_BATCH, LM_PROMPT), generator=gen, device=dev)
+    replay = torch.randint(0, cfg.vocab_size, (1, LM_REPLAY), generator=gen, device=dev)
+    n_attn = attention_layers(cfg)
+    reset_counts()
+    (_, caches), t_prefill = timed(lambda: M.prefill_step(model, {"tokens": prompts}, cfg))
+    launches = counts()
+    states = sum(c is None for c in caches)
+    del caches
+    try:
+        serve.generate(model, prompts[:, :16], 4, cfg)
+        refusal = None
+    except ValueError as err:
+        refusal = str(err)
+    model32, cfg32 = f32_twin(model, cfg, dev)
+    vs_ref = versus_attention_ref(model, cfg, model32, cfg32,
+                                  {f"{LM_BATCH}x{LM_PROMPT}": prompts})
+    dec = decode_versus_forward(model, cfg, model32, cfg32, replay, dev, f32=True)
+    del model32
+    emit({"phase": "lm_hybrid", "arch": cfg.name, "layers": cfg.num_layers,
+          "kinds": {k: cfg.layer_kinds.count(k) for k in sorted(set(cfg.layer_kinds))},
+          "d_model": cfg.d_model, "rnn_width": cfg.rnn_width,
+          "heads": [cfg.num_heads, cfg.num_kv_heads], "head_dim": cfg.head_dim,
+          "window": cfg.local_window, "vocab": cfg.vocab_size, "dtype": cfg.dtype,
+          "params": M.count_params(model), "seconds_init": t_init,
+          "prefill": {"tokens": f"{LM_BATCH}x{LM_PROMPT}", "seconds": t_prefill,
+                      "launches": launches, "layers_without_state": states},
+          "generate_refusal": refusal, "vs_attention_ref": vs_ref,
+          "decode_vs_forward": dec})
+    if launches["flash_attention"] != n_attn or dec["flash_launches"]:
+        fail(f"lm_hybrid: flash_attention launches {launches['flash_attention']} per prefill "
+             f"(want {n_attn}), {dec['flash_launches']} in decode (want 0)")
+    if refusal is None or "no recurrent state" not in refusal:
+        fail(f"lm_hybrid: serve.generate did not refuse the prefill-state gap: {refusal!r}")
+    bad = [name for name, v in vs_ref.items() if not v["ok"]]
+    if bad:
+        fail(f"lm_hybrid: last-position logits disagree with the attention_ref model at {bad}")
+    if not dec["ok"]:
+        fail("lm_hybrid: decode from an empty state disagrees with the forward")
+    launches_probe = lm_probe_phase(model, cfg, dev, phase="lm_hybrid_probe")
+    return launches, launches_probe
+
+
+def lint_phase() -> None:
+    """``python -m repro_torch.analysis`` (reprolint for the port) over the
+    port's tree, as a process on this machine's Python."""
+    root = Path(__file__).resolve().parent
+    env = {**os.environ, "PYTHONPATH": str(root / "src")}
+    proc, secs = timed(lambda: subprocess.run(
+        [sys.executable, "-m", "repro_torch.analysis", "--json"], cwd=root, env=env,
+        capture_output=True, text=True, timeout=300))
+    try:
+        count = json.loads(proc.stdout)["count"]
+    except (ValueError, KeyError):
+        count = None
+    emit({"phase": "lint", "python": sys.version.split()[0], "returncode": proc.returncode,
+          "findings": count, "seconds": secs})
+    if proc.returncode != 0:
+        fail(f"lint: python -m repro_torch.analysis exited {proc.returncode}:\n"
+             f"{proc.stdout[-2000:]}{proc.stderr[-2000:]}")
 
 
 def main() -> None:
@@ -2068,6 +2591,9 @@ def main() -> None:
                 v.get("spill_bytes", 1) for v in info["ptxas"].values()):
             fail(f"lib{name}.so's f64 route: want DMMA in its kernel's SASS and 0 spill bytes, "
                  f"got {info}")
+
+    # reprolint for the port, on this machine's Python
+    lint_phase()
 
     # -- 4. the main path at the paper's MEG/EEG size --------------------------
     ds, t_sim = timed(lambda: eeg.simulate_subject(SEED, n_trials=N_TRIALS, device=dev))
@@ -2365,6 +2891,14 @@ def main() -> None:
     lm_model, lm_cfg, launches_serve = lm_serve_phase(dev)
     launches_probe = lm_probe_phase(lm_model, lm_cfg, dev)
     del lm_model
+    torch.cuda.empty_cache()
+    # the MoE and RG-LRU trunks, one model at a time
+    launches_moe, launches_moe_probe = lm_moe_phase(dev)
+    torch.cuda.empty_cache()
+    launches_qwen = lm_qwen_phase(dev)
+    torch.cuda.empty_cache()
+    launches_hybrid, launches_hybrid_probe = lm_hybrid_phase(dev)
+    torch.cuda.empty_cache()
 
     # -- 3. every kernel against its plain version on the card -----------------
     plan = fastcv.prepare(x, folds, lam)
@@ -2630,7 +3164,9 @@ def main() -> None:
                 check_pd(f"sweep ({cc}, {PD_SWEEP_P}) route {route}", u_, route=route)
     # flash_attention: the LM paths' own shapes and layout (gemma2-2b's serve
     # prefill of 4 × 2,048, its local and global layers at 8,192 tokens, the
-    # probe's 384 × 128; q/k/v as (B, H, S, D) views of (B, S, H, D) memory,
+    # probe's 384 × 128; olmoe's, qwen3-moe's and recurrentgemma's prefills of
+    # 4 × 2,048, olmoe's 8,192-token prefill, olmoe's and recurrentgemma's
+    # probes at 384 × 128; q/k/v as (B, H, S, D) views of (B, S, H, D) memory,
     # as attention_full passes them), starcoder2's and minicpm's head widths,
     # a ragged length, f32 I/O, and the inputs of the cuda-marked test
     # test_flash_attention_kernel[200-None-None-64-bf16] (a seed-0 generator)
@@ -2646,6 +3182,12 @@ def main() -> None:
         ("f32 I/O", 0, 1, 8, 4, 2048, 256, f32, 512, 50.0),
         ("f32 I/O ragged D=64", 0, 2, 6, 2, 777, 64, f32, None, 20.0),
         ("cuda test inputs", 0, 2, 8, 4, 200, 64, bf16, None, None),
+        ("lm_moe prefill", 1, LM_BATCH, 16, 16, LM_PROMPT, 128, bf16, None, None),
+        ("lm_moe_qwen3 prefill", 1, LM_BATCH, 32, 4, LM_PROMPT, 128, bf16, None, None),
+        ("lm_hybrid prefill", 1, LM_BATCH, 10, 1, LM_PROMPT, 256, bf16, 2048, None),
+        ("lm_moe long", 1, 1, 16, 16, LM_LONG, 128, bf16, None, None),
+        ("lm_moe_probe", 1, 2 * PROBE_PER_CLASS, 16, 16, PROBE_SEQ, 128, bf16, None, None),
+        ("lm_hybrid_probe", 1, 2 * PROBE_PER_CLASS, 10, 1, PROBE_SEQ, 256, bf16, 2048, None),
     ]
     attn_inputs = {}
     for case, strided, b_, hq, hkv, s_, d_, dt, win, cap in attn_cases:
@@ -2727,7 +3269,9 @@ def main() -> None:
                "multidim": md["launches"], "tune": tune["launches"], "update": upd["launches"],
                "serve": srv["launches"], "http": htp["launches"],
                "distributed": dst["launches"], "lm_serve": launches_serve,
-               "lm_probe": launches_probe}
+               "lm_probe": launches_probe, "lm_moe": launches_moe,
+               "lm_moe_probe": launches_moe_probe, "lm_moe_qwen3": launches_qwen,
+               "lm_hybrid": launches_hybrid, "lm_hybrid_probe": launches_hybrid_probe}
     # the new paths' shapes (launches: the path that runs the shape; the
     # fold_eval LOO rows run only in the tune phase's f64 check)
     km_, mm_ = te_md.shape
@@ -3009,7 +3553,8 @@ def main() -> None:
     # two on the tensor cores)
     attn_shapes = []
     for case in ("lm_serve global", "lm_serve local", "lm_serve prefill", "lm_probe",
-                 "f32 I/O"):
+                 "f32 I/O", "lm_moe prefill", "lm_moe_qwen3 prefill", "lm_hybrid prefill",
+                 "lm_moe long", "lm_moe_probe", "lm_hybrid_probe"):
         qa, ka, va, kw, err = attn_inputs[case]
         b_, hq, s_, d_ = qa.shape
         pairs = attention_pairs(s_, kw["window"])
@@ -3028,7 +3573,8 @@ def main() -> None:
                      f"{kw['window']}, softcap {kw['softcap']}"}),
             "max_abs_err": err, "kernel_route": route, "pairs": pairs,
             "tiles_visited": attention_tiles(s_, kw["window"], True, route) * b_ * hq,
-            "library_note": "SDPA without the softcap"}
+            "library_note": "SDPA without the softcap" if kw["softcap"] is not None else
+            "SDPA, the same function (no softcap; K/V expanded to the Hq heads before timing)"}
         row["tflops_counted"] = counted / row["ms"] / 1e9
         row["tflops_issued"] = issued / row["ms"] / 1e9
         attn_shapes.append(row)

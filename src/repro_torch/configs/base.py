@@ -135,14 +135,18 @@ def register(name: str, module: str) -> None:
     _REGISTRY[name] = module
 
 
-# The attention-only dense architectures: their blocks are ``attn`` and
-# ``local`` alone. The MoE, RG-LRU, xLSTM, vision and audio configs join when
-# their modules are ported (ROADMAP A14).
+# The architectures the port runs: the dense attention trunks (``attn`` and
+# ``local`` blocks), the MoE trunks (olmoe, qwen3-moe) and the RG-LRU hybrid
+# (recurrentgemma). The xLSTM, vision and audio configs join when their
+# modules are ported (ROADMAP A14).
 for _n, _m in {
     "gemma2-2b": "repro_torch.configs.gemma2_2b",
     "minicpm-2b": "repro_torch.configs.minicpm_2b",
     "starcoder2-3b": "repro_torch.configs.starcoder2_3b",
     "internlm2-20b": "repro_torch.configs.internlm2_20b",
+    "olmoe-1b-7b": "repro_torch.configs.olmoe_1b_7b",
+    "qwen3-moe-30b-a3b": "repro_torch.configs.qwen3_moe_30b_a3b",
+    "recurrentgemma-2b": "repro_torch.configs.recurrentgemma_2b",
 }.items():
     register(_n, _m)
 

@@ -47,11 +47,11 @@ from repro_torch.kernels.foldsolve.ops import foldsolve
 from repro_torch.kernels.gram.ops import centered_gram, check_precision
 from repro_torch.kernels.hat_apply.ops import hat_errors
 
-# reprolint: host-float64
-# (The incremental update lineage — update_plan/downdate_plan/
+# The incremental update lineage — update_plan/downdate_plan/
 # sliding_window and their helpers — matches from-scratch rebuilds only
-# because every correction stays IEEE float64, per arXiv 2401.13185. RL005
-# flags any sub-float64 dtype in this module.)
+# because every correction stays IEEE float64, per arXiv 2401.13185. Each
+# of those functions declares a host-float64 region, and RL005 flags any
+# sub-float64 dtype inside one; the eval route's kernel dtypes stay outside.
 
 __all__ = [
     "hat_matrix",
@@ -478,6 +478,7 @@ def _resolve_update_mode(mode: str, x_shape) -> str:
 
 def _dual_inverse_from_plan(plan: CVPlan, lam: float) -> torch.Tensor:
     """Recover A⁻¹ = (G_c + λI)⁻¹ from the stored dual hat matrix, O(N²)."""
+    # reprolint: host-float64
     h = plan.h.to(torch.float64)
     n = h.shape[0]
     m = (torch.eye(n, dtype=h.dtype, device=h.device) - (h - 1.0 / n)) / float(lam)
@@ -493,6 +494,7 @@ def _mean_shift_inverse(m: torch.Tensor, x_c: torch.Tensor,
     W = [u, 1], K = [[0,1],[1,δᵀδ]] (det −1, always invertible — robust
     even at δ = 0), and apply Woodbury.
     """
+    # reprolint: host-float64
     u = x_c @ delta
     w = torch.stack([u, torch.ones_like(u)], dim=1)           # (N, 2)
     k_inv = torch.tensor([[0.0, 1.0], [1.0, 0.0]], dtype=m.dtype, device=m.device)
@@ -506,6 +508,7 @@ def _mean_shift_inverse(m: torch.Tensor, x_c: torch.Tensor,
 def _append_inverse(m: torch.Tensor, x_old: torch.Tensor, x_new: torch.Tensor,
                     lam: float) -> torch.Tensor:
     """A′⁻¹ for [x_old; x_new] (centered at the new mean) from M = A⁻¹."""
+    # reprolint: host-float64
     n, k = x_old.shape[0], x_new.shape[0]
     mu = x_old.mean(dim=0)
     mu2 = (n * mu + x_new.sum(dim=0)) / (n + k)
@@ -532,6 +535,7 @@ def _downdate_inverse(m: torch.Tensor, x_old: torch.Tensor,
     """A′⁻¹ for x_old minus ``drop`` rows (centered at the kept mean).
 
     The identity needs no λ: A_κκ already contains it."""
+    # reprolint: host-float64
     n = x_old.shape[0]
     keep = torch.from_numpy(np.setdiff1d(np.arange(n), drop)).to(m.device)
     dr = torch.from_numpy(drop).to(m.device)
@@ -552,6 +556,7 @@ def _finish_plan(m_inv: torch.Tensor, lam: float, te: np.ndarray,
     ``LinAlgError``), as the reference's NumPy Cholesky does; ``prepare``
     gives such a fold a NaN factor instead.
     """
+    # reprolint: host-float64
     n = m_inv.shape[0]
     dev = m_inv.device
     h = torch.eye(n, dtype=m_inv.dtype, device=dev) - float(lam) * m_inv + 1.0 / n
@@ -693,6 +698,7 @@ def _validate_drop(drop, n: int) -> np.ndarray:
 def _update_inputs(plan: CVPlan, x, lam: float, mode: str):
     """Shared validation; returns (x in float64, te, tr, with_train_block,
     the plan's dtype)."""
+    # reprolint: host-float64
     x = _on_plan_device("x", x, plan)
     if x.ndim != 2:
         raise ValueError("x must be the 2-D feature matrix the plan was "
@@ -713,6 +719,7 @@ def _update_inputs(plan: CVPlan, x, lam: float, mode: str):
 
 
 def _new_rows(x_new, plan: CVPlan, p: int) -> torch.Tensor:
+    # reprolint: host-float64
     xn = _on_plan_device("x_new", x_new, plan)
     if xn.ndim != 2 or xn.shape[1] != p:
         raise ValueError(
@@ -764,6 +771,7 @@ def update_plan(plan: CVPlan, x_new, folds_delta, *, x, lam: float,
     equal to ``prepare(torch.cat([x, x_new]), new_folds, lam, "dual")`` to
     ≤1e-5 without rebuilding the Gram. Cost O(N²k + NPk).
     """
+    # reprolint: host-float64
     x64, te, tr, wtb, dtype = _update_inputs(plan, x, lam, mode)
     n = x64.shape[0]
     xn = _new_rows(x_new, plan, x64.shape[1])
@@ -792,6 +800,7 @@ def downdate_plan(plan: CVPlan, drop_idx, *, x, lam: float,
     samples per fold, or train-only rows); use :func:`sliding_window` to
     backfill slots instead. Cost O(N²d + d³).
     """
+    # reprolint: host-float64
     x64, te, tr, wtb, dtype = _update_inputs(plan, x, lam, mode)
     n = x64.shape[0]
     drop = _validate_drop(drop_idx, n)
@@ -813,6 +822,7 @@ def sliding_window(plan: CVPlan, x_new, drop_idx, *, x, lam: float,
     fold geometry is preserved exactly; pass ``folds_delta`` to re-assign
     instead. The updated dataset is ``torch.cat([x[keep], x_new])``.
     """
+    # reprolint: host-float64
     x64, te, tr, wtb, dtype = _update_inputs(plan, x, lam, mode)
     n = x64.shape[0]
     drop = _validate_drop(drop_idx, n)

@@ -36,7 +36,8 @@ def layerwise_hidden_states(params: M.Model, tokens: torch.Tensor,
 
     Returns (n_points, N, d_model) float32 — one feature set per repeat of
     the layer pattern (the tail is not a point), mean-pooled over the
-    sequence in the compute dtype.
+    sequence in the compute dtype. Every block kind runs (attention,
+    RG-LRU, MoE MLPs).
     """
     positions = M._positions(tokens.shape[-1], tokens.device)
     h = M._embed(params, tokens, cfg)
@@ -44,8 +45,8 @@ def layerwise_hidden_states(params: M.Model, tokens: torch.Tensor,
     snaps = []
     for r in range(n_rep):
         for i in range(len(pat)):
-            h, _ = T.apply_block_full(params.blocks.layers[r * len(pat) + i], h, cfg,
-                                      positions=positions)
+            h = T.apply_block_full(params.blocks.layers[r * len(pat) + i], h, cfg,
+                                   positions=positions)[0]
         snaps.append(h.mean(dim=1))
     return torch.stack(snaps).float()
 

@@ -15,6 +15,11 @@ local layers hold ``min(local_window, total_len)`` slots, and placing a
 longer prompt would need the ring-buffer layout of the last window's
 positions. (The reference's launcher grafts such a prompt into no slot at
 all, and its local layers then decode without the prompt.)
+
+An architecture with ``rglru`` layers (recurrentgemma) is refused too: its
+prefill returns no recurrent state, so decode could not continue from the
+prompt. (The reference's launcher fails on the same gap.) Its forward,
+``prefill_step`` and ``decode_step`` from an empty state all run.
 """
 
 from __future__ import annotations
@@ -34,6 +39,13 @@ from repro_torch.models import transformer as T
 def _sync(device: torch.device) -> None:
     if device.type == "cuda":
         torch.cuda.synchronize(device)
+
+
+def check_prefill_state(cfg: ArchConfig) -> None:
+    """Raise ``ValueError`` if prefill leaves a layer without decode state."""
+    if "rglru" in cfg.layer_kinds:
+        raise ValueError(f"{cfg.name}: prefill returns no recurrent state for its rglru "
+                         "layers, so decode cannot continue from the prompt")
 
 
 def check_prompt_len(cfg: ArchConfig, prompt_len: int) -> None:
@@ -62,6 +74,7 @@ def generate(params: M.Model, prompts: torch.Tensor, gen_len: int, cfg: ArchConf
     decode tokens/s and the caches' bytes.
     """
     b, s = prompts.shape
+    check_prefill_state(cfg)
     check_prompt_len(cfg, s)
     dev = prompts.device
     _sync(dev)
@@ -103,6 +116,7 @@ def main(argv=None):
     if args.kv_quant:
         cfg = dataclasses.replace(cfg, kv_quant=True)
     dev = resolve_device(args.device)
+    check_prefill_state(cfg)
     check_prompt_len(cfg, args.prompt_len)
     gen = torch.Generator(device=dev)
     gen.manual_seed(0)

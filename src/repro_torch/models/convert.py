@@ -6,7 +6,9 @@ beyond the last full repeat under ``blocks.tail``, and an untied head as
 ``lm_head``. :func:`params_from_jax` takes that tree as nested dicts and
 lists of numpy arrays (``jax.tree.map(np.asarray, params)``) and returns a
 :class:`~repro_torch.models.model.Model` holding the same numbers, block
-``r·len(pattern) + i`` taken from repeat r of stack entry i.
+``r·len(pattern) + i`` taken from repeat r of stack entry i. A block's
+subtrees keep their keys (``attn.*``, ``mlp.*``, ``moe.*``, ``rglru.*``),
+stacked or in the tail alike.
 """
 
 from __future__ import annotations

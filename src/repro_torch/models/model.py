@@ -1,12 +1,14 @@
 """Model assembly: embeddings → trunk → head; forward / prefill / decode.
 
-The port of the reference's ``models/model.py`` for the dense attention
-trunks. ``init_params(cfg)`` builds the model as ``nn.Module``s whose
+The port of the reference's ``models/model.py`` for the attention, MoE and
+RG-LRU trunks. ``init_params(cfg)`` builds the model as ``nn.Module``s whose
 parameter names follow the reference's keys (``embed.tokens``,
-``blocks.layers.<i>.attn.wq``, ``final_norm.scale``, ``lm_head``), from an
-explicit ``torch.Generator`` on the target device; ``forward``,
-``prefill_step`` and ``decode_step`` are the serving programs. Training
-(``loss_fn``, ``train_step``) waits for a later slice.
+``blocks.layers.<i>.attn.wq``, ``blocks.layers.<i>.moe.router``,
+``blocks.layers.<i>.rglru.a_param``, ``final_norm.scale``, ``lm_head``),
+from an explicit ``torch.Generator`` on the target device; ``forward``
+(with the MoE load-balancing loss), ``prefill_step`` and ``decode_step``
+(K/V caches and recurrent state, updated in place) are the serving
+programs. Training (``loss_fn``, ``train_step``) waits for a later slice.
 """
 
 from __future__ import annotations
@@ -85,7 +87,9 @@ def _positions(s: int, device) -> torch.Tensor:
 
 def forward(params: Model, tokens: torch.Tensor, cfg: ArchConfig, *,
             collect_cache: bool = False):
-    """Full-sequence forward. Returns (logits, per-layer caches | None, aux)."""
+    """Full-sequence forward. Returns (logits, per-layer caches | None, aux):
+    aux is the MoE load-balancing loss summed over the layers (0 without
+    MoE)."""
     h = _embed(params, tokens, cfg)
     h, caches, aux = T.apply_trunk_full(params.blocks, h, cfg,
                                         positions=_positions(tokens.shape[-1], tokens.device),
@@ -102,14 +106,16 @@ def cross_entropy(logits: torch.Tensor, labels: torch.Tensor) -> torch.Tensor:
 
 def prefill_step(params: Model, batch: dict, cfg: ArchConfig):
     """Prefill: full forward returning last-position logits (B, V) + KV caches
-    (one dict per layer, prefill length)."""
+    (one dict per layer, prefill length; None for an ``rglru`` layer, whose
+    recurrent state the prefill does not return, as in the reference)."""
     logits, caches, _ = forward(params, batch["tokens"], cfg, collect_cache=True)
     return logits[:, -1].clone(), caches          # a copy: the full logits can go
 
 
 def decode_step(params: Model, tokens: torch.Tensor, pos: int, caches: list, cfg: ArchConfig):
     """One-token decode. tokens: (B, 1); pos: absolute position of the new
-    token. Returns (logits (B, 1, V), caches) — the caches updated in place."""
+    token. Returns (logits (B, 1, V), caches) — the caches (K/V slots, and
+    the ``rglru`` layers' recurrent state) updated in place."""
     h = _embed(params, tokens, cfg)
     h, caches = T.apply_trunk_decode(params.blocks, h, cfg, pos=pos, caches=caches)
     return _unembed(params, h, cfg), caches

@@ -1,17 +1,20 @@
 """Generic decoder trunk: pattern repeats, per-layer blocks, decode caches.
 
-The port of the reference's ``models/transformer.py`` for the attention
-kinds. Architectures are described by ``cfg.layer_pattern`` (gemma2 =
-("local", "attn")); layers are grouped into *repeats* of the pattern, and
-layers beyond the last full repeat form the "tail". The reference stacks
-each pattern position's parameters over repeats and runs one ``lax.scan``;
-here the trunk is an ``nn.ModuleList`` of blocks in layer order, run by a
-Python loop (layer ``r·len(pattern) + i`` is repeat r, pattern position i),
-and :func:`_pattern_split` keeps "repeat" meaning what it means there.
+The port of the reference's ``models/transformer.py``. Architectures are
+described by ``cfg.layer_pattern`` (gemma2 = ("local", "attn"),
+recurrentgemma = ("rglru", "rglru", "local")); layers are grouped into
+*repeats* of the pattern, and layers beyond the last full repeat form the
+"tail". The reference stacks each pattern position's parameters over
+repeats and runs one ``lax.scan``; here the trunk is an ``nn.ModuleList``
+of blocks in layer order, run by a Python loop (layer ``r·len(pattern) +
+i`` is repeat r, pattern position i), and :func:`_pattern_split` keeps
+"repeat" meaning what it means there.
 
-Block kinds here: attn | local. Each is a pre-norm residual attention
-mixer followed by a residual MLP. The other kinds (cross, rglru, mlstm,
-slstm) and MoE MLPs wait for their modules (ROADMAP A14).
+Block kinds here: attn | local | rglru. Each is a pre-norm residual mixer
+(attention, or the RG-LRU recurrent mixer) followed by a residual MLP, or
+an MoE when ``cfg.moe_experts`` (whose load-balancing loss the trunk
+sums). The other kinds (cross, mlstm, slstm) wait for their modules
+(ROADMAP A14).
 """
 
 from __future__ import annotations
@@ -23,15 +26,18 @@ from torch import nn
 
 from repro_torch.configs.base import ArchConfig
 from repro_torch.models import layers as L
+from repro_torch.models import moe as moe_lib
+from repro_torch.models import rglru as rg
 
 ATTN_KINDS = ("attn", "local")
+KINDS = ATTN_KINDS + ("rglru",)
 
 
 def check_supported(cfg: ArchConfig) -> None:
     """Raise ``NotImplementedError`` for what this port does not run yet."""
-    kinds = sorted(set(cfg.layer_kinds) - set(ATTN_KINDS))
+    kinds = sorted(set(cfg.layer_kinds) - set(KINDS))
     missing = ([f"block kinds {kinds}"] if kinds else []) + [
-        what for what, on in (("MoE MLPs", cfg.moe_experts), ("audio codebooks", cfg.num_codebooks),
+        what for what, on in (("audio codebooks", cfg.num_codebooks),
                               ("vision cross-attention", cfg.vision_tokens),
                               (f"{cfg.pos_embedding} positions", cfg.pos_embedding == "sinusoidal"))
         if on]
@@ -43,17 +49,23 @@ def check_supported(cfg: ArchConfig) -> None:
 # ----------------------------------------------------------------- blocks --
 
 class Block(nn.Module):
-    """One attention block: pre_norm → attn → [post_norm] → residual, then
-    pre_mlp_norm → mlp → [post_mlp_norm] → residual."""
+    """One block: pre_norm → attn | rglru → [post_norm] → residual, then
+    pre_mlp_norm → mlp | moe → [post_mlp_norm] → residual."""
 
     def __init__(self, cfg: ArchConfig, kind: str, device=None):
         super().__init__()
         self.kind = kind
         self.pre_norm = L.Norm(cfg, device=device)
-        self.attn = L.Attention(cfg, device=device)
+        if kind == "rglru":
+            self.rglru = rg.RGLRU(cfg, device=device)
+        else:
+            self.attn = L.Attention(cfg, device=device)
         self.post_norm = L.Norm(cfg, device=device) if cfg.post_norms else None
         self.pre_mlp_norm = L.Norm(cfg, device=device)
-        self.mlp = L.MLP(cfg, device=device)
+        if cfg.moe_experts:
+            self.moe = moe_lib.MoE(cfg, device=device)
+        else:
+            self.mlp = L.MLP(cfg, device=device)
         self.post_mlp_norm = L.Norm(cfg, device=device) if cfg.post_norms else None
 
     def init_(self, gen: torch.Generator) -> None:
@@ -62,7 +74,10 @@ class Block(nn.Module):
 
 
 def init_block_cache(cfg: ArchConfig, kind: str, batch: int, cache_len: int, device) -> dict:
-    """Static-shape decode cache for one block (zeros)."""
+    """Static-shape decode cache for one block (zeros): K/V slots, or an
+    ``rglru`` block's recurrent state."""
+    if kind == "rglru":
+        return rg.init_recurrent_state(cfg, batch, device)
     if kind not in ATTN_KINDS:
         raise NotImplementedError(f"block kind {kind!r} is not ported yet (ROADMAP A14)")
     cap = min(cfg.local_window or cache_len, cache_len) if kind == "local" else cache_len
@@ -87,9 +102,15 @@ def _residual(x: torch.Tensor, out: torch.Tensor, norm: Optional[L.Norm],
     return x + out
 
 
-def _mlp_residual(p: Block, x: torch.Tensor, cfg: ArchConfig) -> torch.Tensor:
+def _mlp_residual(p: Block, x: torch.Tensor, cfg: ArchConfig):
+    """The MLP (or MoE) sub-block: (x, the MoE's aux loss () f32, or None for
+    a dense MLP)."""
     h2 = L.apply_norm(p.pre_mlp_norm, x, cfg)
-    return _residual(x, L.apply_mlp(p.mlp, h2, cfg), p.post_mlp_norm, cfg)
+    if cfg.moe_experts:
+        out, aux = moe_lib.apply_moe(p.moe, h2, cfg)
+    else:
+        out, aux = L.apply_mlp(p.mlp, h2, cfg), None
+    return _residual(x, out, p.post_mlp_norm, cfg), aux
 
 
 def _window(p: Block, cfg: ArchConfig) -> Optional[int]:
@@ -97,26 +118,37 @@ def _window(p: Block, cfg: ArchConfig) -> Optional[int]:
 
 
 def apply_block_full(p: Block, x: torch.Tensor, cfg: ArchConfig, *, positions: torch.Tensor):
-    """Train/prefill block. Returns (x, cache_init)."""
+    """Train/prefill block. Returns (x, cache_init, aux loss or None for a
+    dense MLP): the cache is None for an ``rglru`` block (prefill returns no
+    recurrent state, as in the reference)."""
     h = L.apply_norm(p.pre_norm, x, cfg)
-    out, (k, v) = L.attention_full(p.attn, h, cfg, positions=positions, window=_window(p, cfg))
-    if cfg.kv_quant:
-        kq, ks = L.quantize_kv(k)
-        vq, vs = L.quantize_kv(v)
-        cache = {"k": kq, "v": vq, "k_scale": ks, "v_scale": vs}
+    if p.kind == "rglru":
+        out, cache = rg.apply_recurrent_block(p.rglru, h, cfg)
     else:
-        cache = {"k": k, "v": v}
+        out, (k, v) = L.attention_full(p.attn, h, cfg, positions=positions,
+                                       window=_window(p, cfg))
+        if cfg.kv_quant:
+            kq, ks = L.quantize_kv(k)
+            vq, vs = L.quantize_kv(v)
+            cache = {"k": kq, "v": vq, "k_scale": ks, "v_scale": vs}
+        else:
+            cache = {"k": k, "v": v}
     x = _residual(x, out, p.post_norm, cfg)
-    return _mlp_residual(p, x, cfg), cache
+    x, aux = _mlp_residual(p, x, cfg)
+    return x, cache, aux
 
 
 def apply_block_decode(p: Block, x: torch.Tensor, cfg: ArchConfig, *, pos: int, cache: dict):
-    """Single-token decode block; updates ``cache`` in place. Returns
-    (x, cache)."""
+    """Single-token decode block; updates ``cache`` (K/V slots or recurrent
+    state) in place. Returns (x, cache)."""
     h = L.apply_norm(p.pre_norm, x, cfg)
-    out, cache = L.attention_decode(p.attn, h, cfg, cache=cache, pos=pos, window=_window(p, cfg))
+    if p.kind == "rglru":
+        out, cache = rg.apply_recurrent_block(p.rglru, h, cfg, state=cache)
+    else:
+        out, cache = L.attention_decode(p.attn, h, cfg, cache=cache, pos=pos,
+                                        window=_window(p, cfg))
     x = _residual(x, out, p.post_norm, cfg)
-    return _mlp_residual(p, x, cfg), cache
+    return _mlp_residual(p, x, cfg)[0], cache
 
 
 # ------------------------------------------------------------------ trunk --
@@ -148,13 +180,15 @@ def init_trunk_cache(cfg: ArchConfig, batch: int, cache_len: int, device) -> lis
 
 def apply_trunk_full(trunk: Trunk, x: torch.Tensor, cfg: ArchConfig, *, positions: torch.Tensor,
                      collect_cache: bool = False):
-    """Returns (x, per-layer caches or None, aux loss 0)."""
-    caches = []
+    """Returns (x, per-layer caches or None, aux loss summed over the layers)."""
+    caches, aux = [], torch.zeros((), device=x.device)
     for blk in trunk.layers:
-        x, cache = apply_block_full(blk, x, cfg, positions=positions)
+        x, cache, a = apply_block_full(blk, x, cfg, positions=positions)
+        if a is not None:
+            aux = aux + a
         if collect_cache:
             caches.append(cache)
-    return x, (caches if collect_cache else None), torch.zeros((), device=x.device)
+    return x, (caches if collect_cache else None), aux
 
 
 def apply_trunk_decode(trunk: Trunk, x: torch.Tensor, cfg: ArchConfig, *, pos: int,

@@ -583,6 +583,7 @@ class CVEngine:
         PlanCache/PlanStore never conflate them. The new version's key
         fingerprints the updated X once, here.
         """
+        # reprolint: host-path
         rec = self.dataset_record(handle)
         if x_new is None and drop_idx is None:
             raise ValueError(
@@ -637,7 +638,8 @@ class CVEngine:
                 keep = np.setdiff1d(np.arange(n), drop)
                 x2 = x2[torch.from_numpy(keep).to(self.device)]
             if k:
-                x2 = torch.cat([x2, x_new.to(x2.dtype)])
+                # X lives on the engine's device; a host round trip of (N, P) costs more
+                x2 = torch.cat([x2, x_new.to(x2.dtype)])  # reprolint: ignore[RL001] -- X on device
             new_version = rec.version + 1
             new_key = fastcv.plan_key(x2, folds2, rec.lam, resolved, True,
                                       version=new_version,

@@ -921,6 +921,7 @@ def run_workloads(engine, workloads: Sequence, *, return_errors: bool = False) -
     as ``timings``. Tracing off ⇒ all hooks are no-ops and ``timings``
     stays None.
     """
+    # reprolint: host-path
     raw = list(workloads)
     device = engine.device
     responses: list = [None] * len(raw)
@@ -1127,7 +1128,7 @@ def run_workloads(engine, workloads: Sequence, *, return_errors: bool = False) -
             # correction runs there); drop sets are small host index arrays.
             x_blocks = [_tensor(w.x, device) for _, w in members if w.x is not None]
             drops = [_host(w.drop_idx) for _, w in members if w.drop_idx is not None]
-            x_new = torch.cat(x_blocks) if x_blocks else None
+            x_new = torch.cat(x_blocks) if x_blocks else None  # reprolint: ignore[RL001] -- one cat
             drop_idx = np.concatenate(drops) if drops else None
             t0 = time.perf_counter() if tracer.enabled else 0.0
             handle = update_dataset(members[0][1].dataset, x_new=x_new, drop_idx=drop_idx)
@@ -1343,6 +1344,7 @@ def _finish_stream(tracer, tr, build_response):
 
 
 def _stream_permutation(engine, w: Workload, chunk: int, tracer=NULL_TRACER, tr=None):
+    # reprolint: host-path
     total = w.n_perm
     needs_train = w.estimator == "multiclass" or w.adjust_bias
     with tracer.activate(tr):
@@ -1376,7 +1378,8 @@ def _stream_permutation(engine, w: Workload, chunk: int, tracer=NULL_TRACER, tr=
         yield ProgressEvent("null", hi, total, null_block)
 
     def build():
-        null = torch.cat(chunks)
+        # the chunks are eval outputs on the device: one cat at the stream's end
+        null = torch.cat(chunks)  # reprolint: ignore[RL001] -- chunks on the device
         p = perm_lib.p_value(observed, null)
         return PermutationResponse(observed, null, p, key)
 
@@ -1395,6 +1398,7 @@ def _stream_update(engine, w: Workload, chunk: int, tracer=NULL_TRACER, tr=None)
     superseded intermediate versions are released as soon as the next one
     lands; only the base version and the final version survive the stream.
     """
+    # reprolint: host-path
     handle = w.dataset
     k_total = 0 if w.x is None else int(np.shape(w.x)[0])
     d_total = 0 if w.drop_idx is None else int(np.shape(w.drop_idx)[0])
@@ -1455,6 +1459,7 @@ def _stream_update(engine, w: Workload, chunk: int, tracer=NULL_TRACER, tr=None)
 
 
 def _stream_rsa(engine, w: Workload, chunk: int, tracer=NULL_TRACER, tr=None):
+    # reprolint: host-path
     c = w.num_classes
     total = w.n_perm if w.model_rdms is not None else 0
     needs_train = w.contrast == "multiclass" or w.adjust_bias
@@ -1506,7 +1511,7 @@ def _stream_rsa(engine, w: Workload, chunk: int, tracer=NULL_TRACER, tr=None):
 
     def build():
         # the p-value of CVEngine.compare_rdms, over the concatenated chunks
-        null = torch.cat(chunks, dim=1)
+        null = torch.cat(chunks, dim=1)  # reprolint: ignore[RL001] -- chunks on the device
         return RSAResponse(rdm, vals, scores, null, _rdm_p_value(scores, null), key)
 
     yield ProgressEvent("done", total, total, _finish_stream(tracer, tr, build))

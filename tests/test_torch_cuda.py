@@ -503,6 +503,21 @@ def test_flash_attention_kernel_gqa_and_non_causal(gen, hq, hkv):
         _attn_close(got, attention_ref(q, k, v, scale=0.1, causal=causal))
 
 
+# The MoE and hybrid trunks' shapes, as (B, S, H, D) views: olmoe's MHA (16 /
+# 16 heads of 128), qwen3-moe's GQA (32 / 4 of 128), recurrentgemma's MQA (a
+# group of 10 query heads on 1 KV head of 256, window 2,048 < S) and that
+# group of 10 at D = 128; both routes, one launch each.
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("hq,hkv,d,s,window", [(16, 16, 128, 600, None), (32, 4, 128, 600, None),
+                                               (10, 1, 256, 2100, 2048), (10, 1, 128, 777, 100)])
+def test_flash_attention_kernel_at_the_moe_and_hybrid_shapes(gen, dtype, hq, hkv, d, s, window):
+    q, k, v = (torch.randn(2, s, h, d, generator=gen, device="cuda").to(dtype).transpose(1, 2)
+               for h in (hq, hkv, hkv))
+    kw = dict(scale=d ** -0.5, window=window)
+    got = _launched("flash_attention", lambda: flash_attention(q, k, v, **kw))
+    _attn_close(got, attention_ref(q, k, v, **kw))
+
+
 def test_flash_attention_kernel_reads_strided_views(gen):
     """(B, S, H, D) memory seen as (B, H, S, D): the same bits as contiguous
     inputs, and the output keeps q's layout."""

@@ -91,10 +91,12 @@ def test_configs_equal_the_reference_field_for_field(arch, smoke):
 
 
 def test_registry_names_only_what_the_port_runs():
-    assert base.list_archs() == sorted(ARCHS)
+    # the dense trunks here; the MoE and RG-LRU ones in test_torch_moe / _rglru
+    assert base.list_archs() == sorted(ARCHS + ["olmoe-1b-7b", "qwen3-moe-30b-a3b",
+                                                "recurrentgemma-2b"])
     assert set(base.list_archs()) < set(ref_base.list_archs())
     with pytest.raises(KeyError, match="unknown arch"):
-        base.get_config("olmoe-1b-7b")
+        base.get_config("xlstm-125m")
     cfg = base.apply_overrides(base.get_config("gemma2-2b"), ["num_layers=4", "kv_quant=true",
                                                               "norm_eps=1e-5"])
     want = ref_base.apply_overrides(ref_base.get_config("gemma2-2b"),
@@ -104,12 +106,17 @@ def test_registry_names_only_what_the_port_runs():
 
 def test_other_families_raise_naming_the_roadmap():
     cfg = dataclasses.replace(base.get_config("gemma2-2b", smoke=True),
-                              layer_pattern=("rglru", "local"))
+                              layer_pattern=("mlstm", "local"))
     with pytest.raises(NotImplementedError, match="A14"):
         M.init_params(cfg, device="cpu")
     with pytest.raises(NotImplementedError, match="A14"):
-        M.Model(dataclasses.replace(base.get_config("minicpm-2b", smoke=True), moe_experts=4),
+        M.Model(dataclasses.replace(base.get_config("minicpm-2b", smoke=True), num_codebooks=4),
                 "cpu")
+    for kind in ("cross", "slstm"):
+        with pytest.raises(NotImplementedError, match="A14"):
+            T.check_supported(dataclasses.replace(cfg, layer_pattern=(kind,)))
+    for arch in ("olmoe-1b-7b", "qwen3-moe-30b-a3b", "recurrentgemma-2b"):
+        T.check_supported(base.get_config(arch))
 
 
 # ------------------------------------------------------------------ model ----
@@ -158,6 +165,19 @@ def test_forward_and_prefill_match_the_reference(arch):
         assert set(got_c) == set(want_c) == {"k", "v"}
         for name in got_c:
             _close(got_c[name], want_c[name], TOL_LOGITS)
+
+
+def test_dense_blocks_return_no_aux_loss():
+    """A dense MLP block adds no aux term (an MoE block returns its loss), so
+    its prefill and decode make no per-layer zero."""
+    cfg = base.get_config("gemma2-2b", smoke=True)
+    gen = torch.Generator()
+    gen.manual_seed(0)
+    model = M.init_params(cfg, generator=gen, device="cpu")
+    x = torch.randn(BATCH, SEQ, cfg.d_model, generator=gen).to(layers._dt(cfg))
+    out, cache, aux = T.apply_block_full(model.blocks.layers[0], x, cfg,
+                                         positions=torch.arange(SEQ)[None])
+    assert aux is None and out.shape == x.shape and set(cache) == {"k", "v"}
 
 
 def _decode_replay_ref(cfg_ref, params_ref, toks):
