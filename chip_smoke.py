@@ -107,13 +107,39 @@ and an f32 copy of them (the yardstick), one model on the card at a time:
   256 tokens in bf16 and in f32, ``launch.serve.generate``'s refusal (prefill
   returns no recurrent state); then its probe (lm_hybrid_probe, 8 points);
 
+then the audio, vision and xLSTM families at full width and depth, the same
+way (bf16, random weights from a seed, an f32 copy as the yardstick):
+
+* lm_audio: musicgen-medium (48 layers, 24 MHA heads of 64, d_model 1,536,
+  4 codebooks of 2,048, sinusoidal positions): ``launch.serve.generate``
+  on 4 × 4 codebooks × 2,048 prompt tokens + 64 greedy steps, the prefill
+  against attention_ref, decode against the forward over 256 tokens in
+  bf16 and f32; then its probe (lm_audio_probe, 48 points, the band tokens
+  tiled over the codebooks);
+* lm_vision: llama-3.2-vision-11b (32 self-attention layers of 32 / 8
+  heads of 128, 8 gated cross layers, d_model 4,096, 1,600 patch
+  embeddings of width 1,280 from the generator), its cross gates planted
+  at ``VISION_GATES`` (0 at init makes a cross layer the identity):
+  ``generate`` (4 × 2,048 + 64), a timed prefill (the cross routes'
+  seconds, the cross caches (4, 1,600, 8, 128) unquantized and placed),
+  the prefill against attention_ref, decode against the forward over 256
+  tokens from caches whose cross K/V come from a prefill, in bf16 and f32,
+  peak memory; then its probe (lm_vision_probe, 8 points);
+* lm_xlstm: xlstm-125m (6 mLSTM and 6 sLSTM layers, d_model 768): a 4 ×
+  2,048 ``prefill_step`` (the sLSTM scans' seconds apart), the card's f32
+  forward against the CPU's at 1 × 2,048, the chunkwise mLSTM at 2,048
+  against one quadratic chunk at 2,000 on the shared prefix, decode from
+  an empty state against the forward over 256 tokens in bf16 and f32,
+  ``generate``'s refusal; then its probe (lm_xlstm_probe, 6 points);
+
 and, after the build, ``python -m repro_torch.analysis`` (lint: reprolint
 for the port) as a process, which must exit 0.
 
 Each path's launch counts are reset before it and read after it; every
 kernel the path should run must have launched (flash_attention exactly once
-per attention layer in each prefill and forward of the MoE and hybrid
-trunks, never in their decode) (the multidim, tune and
+per self-attention layer in each prefill and forward of the MoE, hybrid,
+audio and vision trunks, never in their decode, never for a cross layer,
+never in the xLSTM trunk) (the multidim, tune and
 update paths exactly as often as their calls make: 301 hat_apply and
 foldsolve, one gram a tuning call, none in an update; the serve path's
 warm-up, first batch, update and replay as predicted) (flash_attention exactly
@@ -130,7 +156,8 @@ routes (the RSA path's condition means on route S, a trial-level RDM of
 787 patterns in f32, f64 and bf16 on route T, the route sweep's inputs on
 each route that takes them; every one exactly symmetric with a zero
 diagonal and bitwise repeatable), and flash_attention at the LM paths' shapes and strided
-layout, at head widths 128 and 64, a ragged length and f32 I/O), and the results are
+layout, at head widths 128 and 64 (musicgen's and llama-vision's prefill
+shapes among them), a ragged length and f32 I/O), and the results are
 checked: against the Cholesky composite and against f64 composite runs
 (binary decision values, multi-class predictions, the RSA path's accuracy,
 contrast and confusion RDMs, a probe point's decision values), against
@@ -271,6 +298,15 @@ LM_MOE_ARCH, LM_QWEN_ARCH, LM_HYBRID_ARCH = "olmoe-1b-7b", "qwen3-moe-30b-a3b", 
 QWEN_LAYERS = 16
 QWEN_REPLAY = 64                                   # qwen3's decode replay, tokens
 MOE_FREE_REPLAY = 32     # tokens of the f32 copies' freely routed MoE decode
+# The xLSTM, vision and audio families uncut: musicgen-medium (4 codebooks),
+# llama-3.2-vision-11b (1,600 patch embeddings of width 1,280 from the
+# generator) and xlstm-125m. The cross layers' tanh gates are 0 at init, which
+# makes every cross layer the identity: the phase plants VISION_GATES
+# (gate_attn, gate_mlp) in each before it serves.
+LM_AUDIO_ARCH, LM_VISION_ARCH, LM_XLSTM_ARCH = "musicgen-medium", "llama-3.2-vision-11b", \
+    "xlstm-125m"
+VISION_GATES = (0.8, -0.6)
+XLSTM_QUADRATIC = 2000   # S of the one-chunk (masked-quadratic) mLSTM forward
 # λ per point = tr(G_c)/N of that point's features (the MEG/EEG paths' rule):
 # the residual stream's scale grows about 19× from the first to the last point
 PROBE_PER_CLASS, PROBE_SEQ, PROBE_FOLDS = 192, 128, 6
@@ -485,17 +521,28 @@ def bf16_ulps(got: torch.Tensor, want: torch.Tensor, floor: bool = True) -> tupl
     return float(ulps[i]), float(want[i].abs())
 
 
-def decode_replay(model, tokens, cfg, dev) -> tuple:
-    """Decode every position of ``tokens`` (1, T) from empty caches of T
-    slots: (logits (1, T, V), flash_attention launches meanwhile)."""
+def decode_replay(model, tokens, cfg, dev, vision=None) -> tuple:
+    """Decode every position of ``tokens`` (1, T), or (1, K, T) over K
+    codebooks, from empty caches of T slots; a vision model's cross caches
+    hold the K/V of a prefill over the same tokens and ``vision``. Returns
+    (logits (1, T, V) or (1, T, K, V), flash_attention launches in the
+    decode steps)."""
     from repro_torch.kernels import _build
     from repro_torch.models import model as M
     from repro_torch.models import transformer as T
 
-    caches = T.init_trunk_cache(cfg, 1, tokens.shape[1], dev)
+    n = tokens.shape[-1]
+    caches = T.init_trunk_cache(cfg, 1, n, dev)
+    if vision is not None:
+        _, pre = M.prefill_step(model, {"tokens": tokens, "vision_embeds": vision}, cfg)
+        for kind, cache, part in zip(cfg.layer_kinds, caches, pre):
+            if kind == "cross":
+                for name in ("k", "v"):
+                    cache[name].copy_(part[name])
+        del pre
     before = _build.LAUNCHES["flash_attention"]
-    logits = torch.stack([M.decode_step(model, tokens[:, t:t + 1], t, caches, cfg)[0][:, 0]
-                          for t in range(tokens.shape[1])], dim=1)
+    logits = torch.stack([M.decode_step(model, tokens[..., t:t + 1], t, caches, cfg)[0][:, 0]
+                          for t in range(n)], dim=1)
     return logits, _build.LAUNCHES["flash_attention"] - before
 
 
@@ -1941,19 +1988,25 @@ def attention_layers(cfg, n_layers=None) -> int:
 
 def lm_probe_phase(model, cfg, dev, phase="lm_probe"):
     """launch.probe at full width: a point of the residual stream per repeat
-    of the layer pattern (gemma2-2b 13, olmoe 16, recurrentgemma 8), an
-    analytical-CV permutation test on each (f64)."""
+    of the layer pattern (gemma2-2b 13, olmoe 16, recurrentgemma 8,
+    musicgen 48, llama-vision 8, xlstm 6), an analytical-CV permutation test
+    on each (f64). The band tokens are tiled over an audio model's
+    codebooks; a vision model gets patch embeddings from the generator."""
     from repro_torch.core import fastcv, folds as folds_mod
-    from repro_torch.kernels import _build
     from repro_torch.launch import probe
 
     gen = torch.Generator(device=dev)
     gen.manual_seed(SEED + 1)
-    tokens, y = probe.band_tokens(cfg, PROBE_PER_CLASS, PROBE_SEQ, gen)
+    band, y = probe.band_tokens(cfg, PROBE_PER_CLASS, PROBE_SEQ, gen)
+    tokens, vision = probe.probe_inputs(cfg, band, gen)
     n = tokens.shape[0]
     folds = folds_mod.kfold(n, PROBE_FOLDS, seed=SEED, device=dev)
+    torch.cuda.reset_peak_memory_stats()
     reset_counts()
-    feats, t_feats = timed(lambda: probe.layerwise_hidden_states(model, tokens, cfg))
+    feats, t_feats = timed(lambda: probe.layerwise_hidden_states(model, tokens, cfg,
+                                                                 vision_embeds=vision))
+    peak = torch.cuda.max_memory_allocated()
+    del vision
     lams = [lam_rule(f.double()) for f in feats]
     results, t_probe = timed(lambda: probe.probe_points(feats, y, folds, lams, N_PERM))
     launches = counts()
@@ -1970,6 +2023,7 @@ def lm_probe_phase(model, cfg, dev, phase="lm_probe"):
           "null_mean": [float(r.null.mean()) for r in results],
           "kernel_vs_composite_point0": {"max_abs_err": e_dv, "scale": s_dv,
                                          "tol": TOL[torch.float64]},
+          "hidden_states_peak_memory_gib": peak / 2**30,
           "seconds": {"hidden_states": t_feats, "probes": t_probe}, "launches": launches})
     points = cfg.num_layers // len(cfg.layer_pattern)
     if feats.shape != (points, n, cfg.d_model):
@@ -1993,11 +2047,12 @@ def lm_probe_phase(model, cfg, dev, phase="lm_probe"):
     return launches
 
 
-def f32_twin(model, cfg, dev):
-    """An f32 copy of ``model``'s weights (the yardstick's model)."""
+def f32_twin(model, cfg, dev, dtype="float32"):
+    """An f32 copy of ``model``'s weights (the yardstick's model), or a copy
+    in ``dtype``."""
     from repro_torch.models import model as M
 
-    cfg32 = dataclasses.replace(cfg, dtype="float32", param_dtype="float32")
+    cfg32 = dataclasses.replace(cfg, dtype=dtype, param_dtype=dtype)
     model32 = M.Model(cfg32, dev)
     for p32, p in zip(model32.parameters(), model.parameters(), strict=True):
         p32.copy_(p)
@@ -2105,7 +2160,8 @@ def routed(pin, fn, own=None, **kw):
 
 
 def versus_attention_ref(model, cfg, model32, cfg32, batches: dict) -> dict:
-    """Last-position logits of each token batch on the flash kernel against the
+    """Last-position logits of each prefill batch ({"tokens"}, with
+    "vision_embeds" for a vision model) on the flash kernel against the
     same weights on attention_ref, within TOL_LM_YARDSTICK × the plain bf16
     model's distance from the plain f32 one (as lm_serve holds gemma2-2b);
     the f32 copy on the kernel against attention_ref at TOL_LM_F32. An MoE
@@ -2113,18 +2169,18 @@ def versus_attention_ref(model, cfg, model32, cfg32, batches: dict) -> dict:
     from repro_torch.models import model as M
 
     out = {}
-    for name, toks in batches.items():
+    for name, batch in batches.items():
         pin = Routing() if cfg.moe_experts else None
         if pin is None:
-            flash = M.prefill_step(model, {"tokens": toks}, cfg)[0]
+            flash = M.prefill_step(model, batch, cfg)[0]
         else:
             with pin.recording():
-                flash = M.prefill_step(model, {"tokens": toks}, cfg)[0]
-        runs = {"flash32": lambda: M.prefill_step(model32, {"tokens": toks}, cfg32)[0],
+                flash = M.prefill_step(model, batch, cfg)[0]
+        runs = {"flash32": lambda: M.prefill_step(model32, batch, cfg32)[0],
                 "plain": lambda: on_attention_ref(
-                    lambda: M.prefill_step(model, {"tokens": toks}, cfg)[0]),
+                    lambda: M.prefill_step(model, batch, cfg)[0]),
                 "plain32": lambda: on_attention_ref(
-                    lambda: M.prefill_step(model32, {"tokens": toks}, cfg32)[0])}
+                    lambda: M.prefill_step(model32, batch, cfg32)[0])}
         got = {k: routed(pin, fn) for k, fn in runs.items()}
         err, scale = rel_err(flash, got["plain"])
         yard = rel_err(got["plain"], got["plain32"])[0]
@@ -2146,8 +2202,11 @@ def versus_attention_ref(model, cfg, model32, cfg32, batches: dict) -> dict:
     return out
 
 
-def decode_versus_forward(model, cfg, model32, cfg32, tokens, dev, f32: bool) -> dict:
-    """Decode every position of ``tokens`` (1, T) from empty caches against the
+def decode_versus_forward(model, cfg, model32, cfg32, tokens, dev, f32: bool,
+                          vision=None) -> dict:
+    """Decode every position of ``tokens`` (1, T) (or (1, K, T); a vision
+    model's cross caches from a prefill with ``vision``, see
+    ``decode_replay``) from empty caches against the
     model's own forward: bf16 within TOL_LM_YARDSTICK × the forward's
     distance from the f32 copy's forward on attention_ref; with ``f32`` also
     the f32 copy's decode against its forward at TOL_LM_F32. An MoE trunk's
@@ -2159,23 +2218,24 @@ def decode_versus_forward(model, cfg, model32, cfg32, tokens, dev, f32: bool) ->
     from repro_torch.models import model as M
 
     pin = Routing() if cfg.moe_experts else None
+    vis = {"vision_embeds": vision}
     if pin is None:
-        full = M.forward(model, tokens, cfg)[0]
+        full = M.forward(model, tokens, cfg, **vis)[0]
     else:
         with pin.recording():
-            full = M.forward(model, tokens, cfg)[0]
+            full = M.forward(model, tokens, cfg, **vis)[0]
     steps = {"decode_layers": cfg.num_layers} if pin is not None else {}
     own32, own_dec = [], []
-    ref32 = routed(pin, lambda: on_attention_ref(lambda: M.forward(model32, tokens, cfg32)[0]),
-                   own=own32)
+    ref32 = routed(pin, lambda: on_attention_ref(
+        lambda: M.forward(model32, tokens, cfg32, **vis)[0]), own=own32)
     (dec, flash_n), secs = timed(lambda: routed(
-        pin, lambda: decode_replay(model, tokens, cfg, dev), own=own_dec, **steps))
+        pin, lambda: decode_replay(model, tokens, cfg, dev, vision), own=own_dec, **steps))
     err, scale = rel_err(dec, full)
     yard = rel_err(full, ref32)[0]
     tol = max(TOL_LM_YARDSTICK * yard, TOL_LM_F32 * scale)
-    out = {"tokens": tokens.shape[1], "max_abs_err": err, "scale": scale,
+    out = {"tokens": tokens.shape[-1], "max_abs_err": err, "scale": scale,
            "forward_vs_f32": yard, "tol": tol, "seconds": secs,
-           "tokens_per_s": tokens.shape[1] / secs,
+           "tokens_per_s": tokens.shape[-1] / secs,
            "argmax_agreement": float((dec.argmax(-1) == full.argmax(-1)).float().mean()),
            "ok": err <= tol and bool(torch.isfinite(dec).all())}
     if pin is not None:
@@ -2192,8 +2252,9 @@ def decode_versus_forward(model, cfg, model32, cfg32, tokens, dev, f32: bool) ->
         out["ok"] = out["ok"] and out["decode_own_routing"]["ok"]
     del full, ref32, dec
     if f32:
-        full32 = routed(pin, lambda: M.forward(model32, tokens, cfg32)[0])
-        dec32, n32 = routed(pin, lambda: decode_replay(model32, tokens, cfg32, dev), **steps)
+        full32 = routed(pin, lambda: M.forward(model32, tokens, cfg32, **vis)[0])
+        dec32, n32 = routed(pin, lambda: decode_replay(model32, tokens, cfg32, dev, vision),
+                            **steps)
         e32, s32 = rel_err(dec32, full32)
         flash_n += n32
         out["f32"] = {"max_abs_err": e32, "scale": s32, "tol": TOL_LM_F32 * s32,
@@ -2276,7 +2337,8 @@ def lm_moe_phase(dev):
     del caches_long, last_long
     model32, cfg32 = f32_twin(model, cfg, dev)
     vs_ref = versus_attention_ref(model, cfg, model32, cfg32,
-                                  {f"{LM_BATCH}x{LM_PROMPT}": prompts, f"1x{LM_LONG}": long_prompt})
+                                  {f"{LM_BATCH}x{LM_PROMPT}": {"tokens": prompts},
+                                   f"1x{LM_LONG}": {"tokens": long_prompt}})
     drops = vs_ref[f"{LM_BATCH}x{LM_PROMPT}"]["dropped_choices_per_layer"]
     dec = decode_versus_forward(model, no_drop(cfg), model32, no_drop(cfg32),
                                 long_prompt[:, :LM_REPLAY], dev, f32=False)
@@ -2343,7 +2405,7 @@ def lm_qwen_phase(dev):
     del caches
     model32, cfg32 = f32_twin(model, cfg, dev)
     vs_ref = versus_attention_ref(model, cfg, model32, cfg32,
-                                  {f"{LM_BATCH}x{LM_PROMPT}": prompts})
+                                  {f"{LM_BATCH}x{LM_PROMPT}": {"tokens": prompts}})
     drops = vs_ref[f"{LM_BATCH}x{LM_PROMPT}"]["dropped_choices_per_layer"]
     dec = decode_versus_forward(model, no_drop(cfg), model32, no_drop(cfg32), replay, dev,
                                 f32=False)
@@ -2411,7 +2473,7 @@ def lm_hybrid_phase(dev):
         refusal = str(err)
     model32, cfg32 = f32_twin(model, cfg, dev)
     vs_ref = versus_attention_ref(model, cfg, model32, cfg32,
-                                  {f"{LM_BATCH}x{LM_PROMPT}": prompts})
+                                  {f"{LM_BATCH}x{LM_PROMPT}": {"tokens": prompts}})
     dec = decode_versus_forward(model, cfg, model32, cfg32, replay, dev, f32=True)
     del model32
     emit({"phase": "lm_hybrid", "arch": cfg.name, "layers": cfg.num_layers,
@@ -2435,6 +2497,254 @@ def lm_hybrid_phase(dev):
     if not dec["ok"]:
         fail("lm_hybrid: decode from an empty state disagrees with the forward")
     launches_probe = lm_probe_phase(model, cfg, dev, phase="lm_hybrid_probe")
+    return launches, launches_probe
+
+
+@contextlib.contextmanager
+def clocked(module, name: str, seconds: list):
+    """``module.name`` wrapped so that each call's seconds (synchronized on
+    both sides) are appended to ``seconds``."""
+    fn = getattr(module, name)
+
+    def wrapper(*args, **kwargs):
+        out, secs = timed(lambda: fn(*args, **kwargs))
+        seconds.append(secs)
+        return out
+
+    setattr(module, name, wrapper)
+    try:
+        yield seconds
+    finally:
+        setattr(module, name, fn)
+
+
+def lm_audio_phase(dev):
+    """musicgen-medium at full width and depth (48 layers, 24 MHA heads of 64,
+    d_model 1,536, 4 codebooks of 2,048, layernorm, gelu, sinusoidal
+    positions): serve.generate on 4 × 4 codebooks × 2,048 prompt tokens + 64
+    greedy steps, the prefill against attention_ref and the f32 yardstick,
+    decode against the forward over 256 tokens in bf16 and f32; then its
+    probe."""
+    from repro_torch.configs.base import get_config
+    from repro_torch.launch import serve
+    from repro_torch.models import model as M
+
+    cfg = get_config(LM_AUDIO_ARCH)
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(SEED + 4)
+    model, t_init = timed(lambda: M.init_params(cfg, generator=gen, device=dev))
+    k = cfg.num_codebooks
+    prompts = torch.randint(0, cfg.vocab_size, (LM_BATCH, k, LM_PROMPT), generator=gen,
+                            device=dev)
+    replay = torch.randint(0, cfg.vocab_size, (1, k, LM_REPLAY), generator=gen, device=dev)
+    n_attn = attention_layers(cfg)
+    reset_counts()
+    (ids, st), t_serve = timed(lambda: serve.generate(model, prompts, LM_DECODE + 1, cfg))
+    launches = counts()
+    model32, cfg32 = f32_twin(model, cfg, dev)
+    name = f"{LM_BATCH}x{k}x{LM_PROMPT}"
+    vs_ref = versus_attention_ref(model, cfg, model32, cfg32, {name: {"tokens": prompts}})
+    dec = decode_versus_forward(model, cfg, model32, cfg32, replay, dev, f32=True)
+    del model32
+    emit({"phase": "lm_audio", "arch": cfg.name, "layers": cfg.num_layers,
+          "d_model": cfg.d_model, "heads": [cfg.num_heads, cfg.num_kv_heads],
+          "head_dim": cfg.head_dim, "codebooks": k, "vocab": cfg.vocab_size, "dtype": cfg.dtype,
+          "params": M.count_params(model), "seconds_init": t_init,
+          "serve": {"batch": LM_BATCH, "codebooks": k, "prompt": LM_PROMPT,
+                    "decode_steps": LM_DECODE, "prefill_s": st["prefill_s"],
+                    "decode_s": st["decode_s"], "decode_tokens_per_s": st["tokens_per_s"],
+                    "cache_mib": st["cache_bytes"] / 2**20, "seconds": t_serve,
+                    "first_ids": ids[0, :, :4].tolist(), "launches": launches},
+          "vs_attention_ref": vs_ref, "decode_vs_forward": dec})
+    if launches["flash_attention"] != n_attn or dec["flash_launches"]:
+        fail(f"lm_audio: flash_attention launches {launches['flash_attention']} in generate "
+             f"(want {n_attn}, all in its prefill), {dec['flash_launches']} in decode (want 0)")
+    if ids.shape != (LM_BATCH, k, LM_DECODE + 1) or not bool(((ids >= 0) &
+                                                              (ids < cfg.vocab_size)).all()):
+        fail(f"lm_audio: generated ids of shape {tuple(ids.shape)} or out of range")
+    if not vs_ref[name]["ok"]:
+        fail("lm_audio: last-position logits disagree with the attention_ref model")
+    if not dec["ok"]:
+        fail("lm_audio: decode disagrees with the forward")
+    launches_probe = lm_probe_phase(model, cfg, dev, phase="lm_audio_probe")
+    return launches, launches_probe
+
+
+def lm_vision_phase(dev):
+    """llama-3.2-vision-11b at full width and depth (32 self-attention layers,
+    GQA 32 / 8 heads of 128, 8 gated cross layers; d_model 4,096, d_ff
+    14,336, vocabulary 128,256; 1,600 patch embeddings of width 1,280), the
+    gates planted non-zero: serve.generate (4 × 2,048 + 64 greedy steps), a
+    timed prefill_step (the cross route's seconds apart, the cross caches'
+    shape), the prefill against attention_ref and the f32 yardstick, decode
+    against the forward over 256 tokens from caches whose cross K/V come
+    from the prefill, in bf16 and f32; then its probe."""
+    from repro_torch.configs.base import get_config
+    from repro_torch.launch import serve
+    from repro_torch.models import layers
+    from repro_torch.models import model as M
+
+    cfg = get_config(LM_VISION_ARCH)
+    torch.cuda.reset_peak_memory_stats()
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(SEED + 5)
+    model, t_init = timed(lambda: M.init_params(cfg, generator=gen, device=dev))
+    cross = [blk for blk in model.blocks.layers if blk.kind == "cross"]
+    for blk in cross:                 # planted: at 0 every cross layer is the identity
+        blk.gate_attn.fill_(VISION_GATES[0])
+        blk.gate_mlp.fill_(VISION_GATES[1])
+    prompts = torch.randint(0, cfg.vocab_size, (LM_BATCH, LM_PROMPT), generator=gen, device=dev)
+    vision = torch.randn((LM_BATCH, cfg.vision_tokens, cfg.vision_dim), generator=gen,
+                         device=dev)
+    replay = torch.randint(0, cfg.vocab_size, (1, LM_REPLAY), generator=gen, device=dev)
+    vision_replay = torch.randn((1, cfg.vision_tokens, cfg.vision_dim), generator=gen,
+                                device=dev)
+    n_attn = attention_layers(cfg)
+    batch = {"tokens": prompts, "vision_embeds": vision}
+    reset_counts()
+    (ids, st), t_serve = timed(lambda: serve.generate(model, prompts, LM_DECODE + 1, cfg,
+                                                      vision_embeds=vision))
+    launches = counts()
+    reset_counts()
+    with clocked(layers, "cross_attention", []) as cross_s:
+        (_, pre), t_prefill = timed(lambda: M.prefill_step(model, batch, cfg))
+    launches_prefill = counts()
+    placed = serve.place_prefill(cfg, pre, LM_BATCH, LM_PROMPT + LM_DECODE + 1)
+    cross_caches = sorted({(tuple(c["k"].shape), str(c["k"].dtype), tuple(sorted(c)))
+                           for kind, c in zip(cfg.layer_kinds, placed) if kind == "cross"})
+    cross_placed = all(torch.equal(c["k"], p["k"]) and torch.equal(c["v"], p["v"])
+                       for kind, c, p in zip(cfg.layer_kinds, placed, pre) if kind == "cross")
+    del pre, placed
+    model32, cfg32 = f32_twin(model, cfg, dev)
+    name = f"{LM_BATCH}x{LM_PROMPT}"
+    vs_ref = versus_attention_ref(model, cfg, model32, cfg32, {name: batch})
+    dec = decode_versus_forward(model, cfg, model32, cfg32, replay, dev, f32=True,
+                                vision=vision_replay)
+    peak = torch.cuda.max_memory_allocated()
+    reserved = torch.cuda.max_memory_reserved()
+    del model32
+    want_cache = [((LM_BATCH, cfg.vision_tokens, cfg.num_kv_heads, cfg.head_dim),
+                   str(getattr(torch, cfg.dtype)), ("k", "v"))]
+    emit({"phase": "lm_vision", "arch": cfg.name, "layers": cfg.num_layers,
+          "kinds": {k: cfg.layer_kinds.count(k) for k in sorted(set(cfg.layer_kinds))},
+          "d_model": cfg.d_model, "d_ff": cfg.d_ff, "heads": [cfg.num_heads, cfg.num_kv_heads],
+          "head_dim": cfg.head_dim, "vocab": cfg.vocab_size,
+          "vision": [cfg.vision_tokens, cfg.vision_dim], "gates": VISION_GATES,
+          "dtype": cfg.dtype, "params": M.count_params(model), "seconds_init": t_init,
+          "memory": {"peak_allocated_gib": peak / 2**30, "peak_reserved_gib": reserved / 2**30,
+                     "card_gib": torch.cuda.mem_get_info()[1] / 2**30},
+          "serve": {"batch": LM_BATCH, "prompt": LM_PROMPT, "decode_steps": LM_DECODE,
+                    "prefill_s": st["prefill_s"], "decode_s": st["decode_s"],
+                    "decode_tokens_per_s": st["tokens_per_s"],
+                    "cache_mib": st["cache_bytes"] / 2**20, "seconds": t_serve,
+                    "first_ids": ids.flatten()[:16].tolist(), "launches": launches},
+          "prefill": {"tokens": name, "seconds": t_prefill, "launches": launches_prefill,
+                      "cross_attention_s": sum(cross_s), "cross_calls": len(cross_s),
+                      "cross_caches": cross_caches, "cross_placed": cross_placed},
+          "vs_attention_ref": vs_ref, "decode_vs_forward": dec})
+    if launches["flash_attention"] != n_attn or launches_prefill["flash_attention"] != n_attn \
+            or dec["flash_launches"]:
+        fail(f"lm_vision: flash_attention launches {launches['flash_attention']} in generate and "
+             f"{launches_prefill['flash_attention']} per prefill (want {n_attn}: the self-"
+             f"attention layers), {dec['flash_launches']} in decode (want 0)")
+    if len(cross_s) != len(cross) or cross_caches != want_cache or not cross_placed:
+        fail(f"lm_vision: {len(cross_s)} cross routes per prefill (want {len(cross)}), cross "
+             f"caches {cross_caches} (want {want_cache} unquantized), placed {cross_placed}")
+    if ids.shape != (LM_BATCH, LM_DECODE + 1) or not bool(((ids >= 0) &
+                                                           (ids < cfg.vocab_size)).all()):
+        fail("lm_vision: generated ids out of shape or range")
+    if not vs_ref[name]["ok"]:
+        fail("lm_vision: last-position logits disagree with the attention_ref model")
+    if not dec["ok"]:
+        fail("lm_vision: decode from the prefill's cross caches disagrees with the forward")
+    launches_probe = lm_probe_phase(model, cfg, dev, phase="lm_vision_probe")
+    return launches, launches_probe
+
+
+def lm_xlstm_phase(dev):
+    """xlstm-125m at full width and depth (12 layers, 6 mLSTM and 6 sLSTM, 4
+    heads; d_model 768; vocabulary 50,304; tied embeddings): a 4 × 2,048
+    prefill_step (8 mLSTM chunks of 256; the sLSTM scan's seconds apart),
+    the card's f32 forward against the same weights' f32 forward on the CPU
+    at 1 × 2,048, the chunkwise forward at 2,048 against the one-chunk
+    (masked-quadratic) forward at 2,000 on their shared prefix, decode from
+    an empty state against the forward over 256 tokens in bf16 and f32,
+    serve.generate's refusal; then its probe."""
+    from repro_torch.configs.base import get_config
+    from repro_torch.launch import serve
+    from repro_torch.models import model as M
+    from repro_torch.models import xlstm
+
+    cfg = get_config(LM_XLSTM_ARCH)
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(SEED + 6)
+    model, t_init = timed(lambda: M.init_params(cfg, generator=gen, device=dev))
+    prompts = torch.randint(0, cfg.vocab_size, (LM_BATCH, LM_PROMPT), generator=gen, device=dev)
+    replay = torch.randint(0, cfg.vocab_size, (1, LM_REPLAY), generator=gen, device=dev)
+    reset_counts()
+    with clocked(xlstm, "slstm_scan", []) as scan_s:
+        (_, caches), t_prefill = timed(lambda: M.prefill_step(model, {"tokens": prompts}, cfg))
+    launches = counts()
+    states = sum(c is None for c in caches)
+    del caches
+    try:
+        serve.generate(model, prompts[:, :16], 4, cfg)
+        refusal = None
+    except ValueError as err:
+        refusal = str(err)
+    model32, cfg32 = f32_twin(model, cfg, dev)
+    # the card's f32 forward against the CPU's, the same f32 weights
+    one = prompts[:1]
+    card32, t_card32 = timed(lambda: M.forward(model32, one, cfg32)[0])
+    model_cpu = M.Model(cfg32, "cpu")
+    for pc, p in zip(model_cpu.parameters(), model32.parameters(), strict=True):
+        pc.copy_(p)
+    t0 = time.perf_counter()
+    cpu32 = M.forward(model_cpu, one.cpu(), cfg32)[0]
+    t_cpu32 = time.perf_counter() - t0
+    del model_cpu
+    e_cpu, s_cpu = rel_err(card32.cpu(), cpu32)
+    # chunkwise (8 chunks of 256) against one masked-quadratic chunk
+    quad = M.forward(model32, one[:, :XLSTM_QUADRATIC], cfg32)[0]
+    e_q, s_q = rel_err(card32[:, :XLSTM_QUADRATIC], quad)
+    # not a gate: each f32 forward's own distance from the same weights in
+    # f64 on the card (the trunk's mLSTM layers amplify f32 rounding ~30×)
+    model64, cfg64 = f32_twin(model, cfg, dev, "float64")
+    f64 = M.forward(model64, one, cfg64)[0]
+    f64_dist = {"card_f32": rel_err(card32, f64)[0], "cpu_f32": rel_err(cpu32, f64.cpu())[0],
+                "quadratic_f32": rel_err(quad, f64[:, :XLSTM_QUADRATIC])[0],
+                "scale": rel_err(f64, f64)[1]}
+    del model64, f64, card32, cpu32, quad
+    dec = decode_versus_forward(model, cfg, model32, cfg32, replay, dev, f32=True)
+    del model32
+    emit({"phase": "lm_xlstm", "arch": cfg.name, "layers": cfg.num_layers,
+          "kinds": {k: cfg.layer_kinds.count(k) for k in sorted(set(cfg.layer_kinds))},
+          "d_model": cfg.d_model, "heads": cfg.num_heads, "vocab": cfg.vocab_size,
+          "dtype": cfg.dtype, "params": M.count_params(model), "seconds_init": t_init,
+          "prefill": {"tokens": f"{LM_BATCH}x{LM_PROMPT}", "mlstm_chunks": LM_PROMPT //
+                      xlstm.MLSTM_CHUNK, "seconds": t_prefill,
+                      "slstm_scan_s": sum(scan_s), "slstm_scans": len(scan_s),
+                      "launches": launches, "layers_without_state": states},
+          "f32_card_vs_cpu": {"tokens": f"1x{LM_PROMPT}", "max_abs_err": e_cpu, "scale": s_cpu,
+                              "tol": TOL_LM_F32 * s_cpu, "card_s": t_card32, "cpu_s": t_cpu32},
+          "chunkwise_vs_quadratic": {"tokens": [LM_PROMPT, XLSTM_QUADRATIC],
+                                     "max_abs_err": e_q, "scale": s_q, "tol": TOL_LM_F32 * s_q},
+          "f32_vs_f64": f64_dist,
+          "generate_refusal": refusal, "decode_vs_forward": dec})
+    if launches["flash_attention"] or dec["flash_launches"]:
+        fail(f"lm_xlstm: flash_attention launched ({launches['flash_attention']} in prefill, "
+             f"{dec['flash_launches']} in decode) in a trunk without attention")
+    if states != cfg.num_layers or len(scan_s) != cfg.layer_kinds.count("slstm"):
+        fail(f"lm_xlstm: {states} layers without prefill state, {len(scan_s)} sLSTM scans")
+    if refusal is None or "no recurrent state" not in refusal:
+        fail(f"lm_xlstm: serve.generate did not refuse the prefill-state gap: {refusal!r}")
+    if e_cpu > TOL_LM_F32 * s_cpu:
+        fail("lm_xlstm: the card's f32 forward disagrees with the CPU's")
+    if e_q > TOL_LM_F32 * s_q:
+        fail("lm_xlstm: the chunkwise mLSTM disagrees with one quadratic chunk")
+    if not dec["ok"]:
+        fail("lm_xlstm: decode from an empty state disagrees with the forward")
+    launches_probe = lm_probe_phase(model, cfg, dev, phase="lm_xlstm_probe")
     return launches, launches_probe
 
 
@@ -2899,6 +3209,13 @@ def main() -> None:
     torch.cuda.empty_cache()
     launches_hybrid, launches_hybrid_probe = lm_hybrid_phase(dev)
     torch.cuda.empty_cache()
+    # the audio, vision and xLSTM families, one model at a time
+    launches_audio, launches_audio_probe = lm_audio_phase(dev)
+    torch.cuda.empty_cache()
+    launches_vision, launches_vision_probe = lm_vision_phase(dev)
+    torch.cuda.empty_cache()
+    launches_xlstm, launches_xlstm_probe = lm_xlstm_phase(dev)
+    torch.cuda.empty_cache()
 
     # -- 3. every kernel against its plain version on the card -----------------
     plan = fastcv.prepare(x, folds, lam)
@@ -3188,6 +3505,8 @@ def main() -> None:
         ("lm_moe long", 1, 1, 16, 16, LM_LONG, 128, bf16, None, None),
         ("lm_moe_probe", 1, 2 * PROBE_PER_CLASS, 16, 16, PROBE_SEQ, 128, bf16, None, None),
         ("lm_hybrid_probe", 1, 2 * PROBE_PER_CLASS, 10, 1, PROBE_SEQ, 256, bf16, 2048, None),
+        ("lm_audio prefill", 1, LM_BATCH, 24, 24, LM_PROMPT, 64, bf16, None, None),
+        ("lm_vision prefill", 1, LM_BATCH, 32, 8, LM_PROMPT, 128, bf16, None, None),
     ]
     attn_inputs = {}
     for case, strided, b_, hq, hkv, s_, d_, dt, win, cap in attn_cases:
@@ -3271,7 +3590,10 @@ def main() -> None:
                "distributed": dst["launches"], "lm_serve": launches_serve,
                "lm_probe": launches_probe, "lm_moe": launches_moe,
                "lm_moe_probe": launches_moe_probe, "lm_moe_qwen3": launches_qwen,
-               "lm_hybrid": launches_hybrid, "lm_hybrid_probe": launches_hybrid_probe}
+               "lm_hybrid": launches_hybrid, "lm_hybrid_probe": launches_hybrid_probe,
+               "lm_audio": launches_audio, "lm_audio_probe": launches_audio_probe,
+               "lm_vision": launches_vision, "lm_vision_probe": launches_vision_probe,
+               "lm_xlstm": launches_xlstm, "lm_xlstm_probe": launches_xlstm_probe}
     # the new paths' shapes (launches: the path that runs the shape; the
     # fold_eval LOO rows run only in the tune phase's f64 check)
     km_, mm_ = te_md.shape
@@ -3554,7 +3876,8 @@ def main() -> None:
     attn_shapes = []
     for case in ("lm_serve global", "lm_serve local", "lm_serve prefill", "lm_probe",
                  "f32 I/O", "lm_moe prefill", "lm_moe_qwen3 prefill", "lm_hybrid prefill",
-                 "lm_moe long", "lm_moe_probe", "lm_hybrid_probe"):
+                 "lm_moe long", "lm_moe_probe", "lm_hybrid_probe", "lm_audio prefill",
+                 "lm_vision prefill"):
         qa, ka, va, kw, err = attn_inputs[case]
         b_, hq, s_, d_ = qa.shape
         pairs = attention_pairs(s_, kw["window"])

@@ -7,9 +7,7 @@ exact configuration, ``get_config(name, smoke=True)`` a reduced
 same-family variant for CPU tests. ``apply_overrides`` implements
 ``--set field=value`` launcher overrides.
 
-The dataclass keeps every field of the reference, so later families only
-add configs; the registry names only the architectures whose blocks the
-port can run (attention-only dense trunks).
+The registry names every architecture of the reference's.
 """
 
 from __future__ import annotations
@@ -135,18 +133,18 @@ def register(name: str, module: str) -> None:
     _REGISTRY[name] = module
 
 
-# The architectures the port runs: the dense attention trunks (``attn`` and
-# ``local`` blocks), the MoE trunks (olmoe, qwen3-moe) and the RG-LRU hybrid
-# (recurrentgemma). The xLSTM, vision and audio configs join when their
-# modules are ported (ROADMAP A14).
+# The reference's architectures: dense, MoE, hybrid, xLSTM, vision and audio.
 for _n, _m in {
+    "llama-3.2-vision-11b": "repro_torch.configs.llama_3_2_vision_11b",
+    "recurrentgemma-2b": "repro_torch.configs.recurrentgemma_2b",
+    "musicgen-medium": "repro_torch.configs.musicgen_medium",
     "gemma2-2b": "repro_torch.configs.gemma2_2b",
     "minicpm-2b": "repro_torch.configs.minicpm_2b",
     "starcoder2-3b": "repro_torch.configs.starcoder2_3b",
     "internlm2-20b": "repro_torch.configs.internlm2_20b",
+    "xlstm-125m": "repro_torch.configs.xlstm_125m",
     "olmoe-1b-7b": "repro_torch.configs.olmoe_1b_7b",
     "qwen3-moe-30b-a3b": "repro_torch.configs.qwen3_moe_30b_a3b",
-    "recurrentgemma-2b": "repro_torch.configs.recurrentgemma_2b",
 }.items():
     register(_n, _m)
 

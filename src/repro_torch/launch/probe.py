@@ -19,6 +19,7 @@ from __future__ import annotations
 
 import argparse
 from collections.abc import Sequence
+from typing import Optional
 
 import torch
 
@@ -30,30 +31,34 @@ from repro_torch.models import model as M
 from repro_torch.models import transformer as T
 
 
-def layerwise_hidden_states(params: M.Model, tokens: torch.Tensor,
-                            cfg: ArchConfig) -> torch.Tensor:
+def layerwise_hidden_states(params: M.Model, tokens: torch.Tensor, cfg: ArchConfig,
+                            vision_embeds: Optional[torch.Tensor] = None) -> torch.Tensor:
     """Forward pass capturing the residual stream after every block repeat.
 
-    Returns (n_points, N, d_model) float32 — one feature set per repeat of
-    the layer pattern (the tail is not a point), mean-pooled over the
-    sequence in the compute dtype. Every block kind runs (attention,
-    RG-LRU, MoE MLPs).
+    tokens: (N, S), or (N, K, S) over K codebooks; ``vision_embeds`` (N,
+    vision_tokens, vision_dim) feed every cross layer. Returns (n_points, N,
+    d_model) float32 — one feature set per repeat of the layer pattern (the
+    tail is not a point), mean-pooled over the sequence in the compute
+    dtype. Every block kind runs (attention, cross attention, RG-LRU,
+    xLSTM, MoE MLPs).
     """
     positions = M._positions(tokens.shape[-1], tokens.device)
-    h = M._embed(params, tokens, cfg)
+    h = M._embed(params, tokens, cfg, positions)
+    vis_kv = M._vision_kv(params, vision_embeds, cfg)
     pat, n_rep, _ = T._pattern_split(cfg)
     snaps = []
     for r in range(n_rep):
         for i in range(len(pat)):
             h = T.apply_block_full(params.blocks.layers[r * len(pat) + i], h, cfg,
-                                   positions=positions)[0]
+                                   positions=positions, vis_kv=vis_kv)[0]
         snaps.append(h.mean(dim=1))
     return torch.stack(snaps).float()
 
 
 def band_tokens(cfg: ArchConfig, n_per_class: int, seq_len: int, generator: torch.Generator):
     """Two synthetic "stimulus classes": sequences drawn from the lower and the
-    upper half of the vocabulary. Returns (tokens (2n, S), labels ±1 f64)."""
+    upper half of the vocabulary. Returns (tokens (2n, S), labels ±1 f64);
+    ``probe_inputs`` tiles them over the codebooks."""
     half_v = cfg.vocab_size // 2
     dev = generator.device
     tok_a = torch.randint(0, half_v, (n_per_class, seq_len), generator=generator, device=dev)
@@ -62,6 +67,19 @@ def band_tokens(cfg: ArchConfig, n_per_class: int, seq_len: int, generator: torc
     y = torch.cat([-torch.ones(n_per_class, dtype=torch.float64, device=dev),
                    torch.ones(n_per_class, dtype=torch.float64, device=dev)])
     return torch.cat([tok_a, tok_b]), y
+
+
+def probe_inputs(cfg: ArchConfig, tokens: torch.Tensor, generator: torch.Generator):
+    """The forward's inputs for band tokens (N, S): the tokens tiled over the
+    codebooks ((N, K, S)) with codebooks, and vision embeddings (N,
+    vision_tokens, vision_dim) drawn from ``generator`` for a vision model
+    (else None)."""
+    n = tokens.shape[0]
+    if cfg.num_codebooks:
+        tokens = tokens[:, None, :].repeat(1, cfg.num_codebooks, 1)
+    vision = (torch.randn((n, cfg.vision_tokens, cfg.vision_dim), generator=generator,
+                          device=generator.device) if cfg.vision_tokens else None)
+    return tokens, vision
 
 
 def probe_points(feats: torch.Tensor, y: torch.Tensor, folds: foldlib.Folds,
@@ -93,7 +111,8 @@ def main(argv=None):
     gen.manual_seed(0)
     params = M.init_params(cfg, generator=gen, device=dev)
     tokens, y = band_tokens(cfg, args.n_per_class, args.seq_len, gen)
-    feats = layerwise_hidden_states(params, tokens, cfg)
+    tokens, vision = probe_inputs(cfg, tokens, gen)
+    feats = layerwise_hidden_states(params, tokens, cfg, vision_embeds=vision)
     f = foldlib.kfold(tokens.shape[0], args.folds, seed=0, device=dev)
     results = probe_points(feats, y, f, args.lam, args.n_perm)
 

@@ -7,8 +7,11 @@ beyond the last full repeat under ``blocks.tail``, and an untied head as
 lists of numpy arrays (``jax.tree.map(np.asarray, params)``) and returns a
 :class:`~repro_torch.models.model.Model` holding the same numbers, block
 ``r·len(pattern) + i`` taken from repeat r of stack entry i. A block's
-subtrees keep their keys (``attn.*``, ``mlp.*``, ``moe.*``, ``rglru.*``),
-stacked or in the tail alike.
+subtrees keep their keys (``attn.*``, ``mlp.*``, ``moe.*``, ``rglru.*``,
+``mlstm.*``, ``slstm.*``), stacked or in the tail alike, and so do a cross
+block's scalar gates (``gate_attn``, ``gate_mlp``: (n_rep,) in the stack,
+() a block). The modality stubs' top-level names carry over as they are:
+``embed.codebook_<i>``, ``lm_head_<i>`` and ``vision_proj.w``.
 """
 
 from __future__ import annotations

@@ -12,12 +12,14 @@ the smoke configs run everything in f32. The reference's sharding hints
 
 On a CUDA tensor the self-attention of :func:`attention_full` is the
 hand-written flash_attention kernel; on a CPU tensor its plain version.
-The decode attention stays plain PyTorch, as it is plain XLA in the
-reference.
+The decode attention and the cross attention to vision tokens (prefill
+and decode, :func:`cross_attention`) stay plain PyTorch, as they are plain
+XLA in the reference: its Pallas kernel is self-attention only.
 """
 
 from __future__ import annotations
 
+import math
 from typing import Optional
 
 import torch
@@ -99,6 +101,18 @@ def rope(x: torch.Tensor, positions: torch.Tensor, theta: float) -> torch.Tensor
     return torch.cat([x1 * cos - x2 * sin, x2 * cos + x1 * sin], dim=-1).to(x.dtype)
 
 
+def sinusoidal(positions: torch.Tensor, d: int) -> torch.Tensor:
+    """(B, S) or (S,) -> (B, S, D) f32 sinusoidal embeddings (MusicGen-style):
+    [sin | cos] of position · exp(−ln 10000 · i / (D/2))."""
+    if positions.ndim == 1:
+        positions = positions[None, :]
+    half = d // 2
+    freqs = torch.exp(-math.log(10000.0)
+                      * torch.arange(half, dtype=torch.float32, device=positions.device) / half)
+    ang = positions[..., None].float() * freqs
+    return torch.cat([torch.sin(ang), torch.cos(ang)], dim=-1)
+
+
 # -------------------------------------------------------------- attention --
 
 class Attention(nn.Module):
@@ -127,12 +141,16 @@ def _project(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     return (x @ w.to(x.dtype).reshape(d, h * dh)).unflatten(-1, (h, dh))
 
 
-def _project_qkv(p: Attention, x: torch.Tensor, cfg: ArchConfig, positions: torch.Tensor):
-    q, k, v = _project(x, p.wq), _project(x, p.wk), _project(x, p.wv)
+def _project_qkv(p: Attention, x: torch.Tensor, cfg: ArchConfig, positions: torch.Tensor,
+                 kv_src: Optional[torch.Tensor] = None):
+    """q from x; k, v from ``kv_src`` (cross attention: the projected vision
+    tokens, no RoPE) or from x."""
+    src = x if kv_src is None else kv_src
+    q, k, v = _project(x, p.wq), _project(src, p.wk), _project(src, p.wv)
     if cfg.qk_norm:
         q = rms_head_norm(p.q_norm, q, cfg.norm_eps)
         k = rms_head_norm(p.k_norm, k, cfg.norm_eps)
-    if cfg.pos_embedding == "rope":
+    if kv_src is None and cfg.pos_embedding == "rope":
         q = rope(q, positions, cfg.rope_theta)
         k = rope(k, positions, cfg.rope_theta)
     return q, k, v
@@ -148,10 +166,32 @@ def _query_scale(cfg: ArchConfig) -> float:
     return cfg.query_scale if cfg.query_scale is not None else cfg.head_dim ** -0.5
 
 
+def cross_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *, scale: float,
+                    softcap: Optional[float] = None) -> torch.Tensor:
+    """Non-causal attention of q (B, Sq, Hq, Dh) over every key of k, v
+    (B, Skv, Hkv, Dh): f32 logits and softmax, query head h reading KV head
+    h // group. Returns (B, Sq, Hq, Dh) in q's dtype. The cross layers'
+    route in prefill and decode alike."""
+    b, sq, hq, dh = q.shape
+    hkv = k.shape[2]
+    qg = q.reshape(b, sq, hkv, hq // hkv, dh)
+    logits = torch.einsum("bqhgd,bkhd->bhgqk", qg.float(), k.float()).mul_(scale)
+    if softcap is not None:
+        logits.div_(softcap).tanh_().mul_(softcap)
+    probs = torch.softmax(logits, dim=-1)
+    del logits
+    out = torch.einsum("bhgqk,bkhd->bqhgd", probs, v.float())
+    return out.reshape(b, sq, hq, dh).to(q.dtype)
+
+
 def attention_full(p: Attention, x: torch.Tensor, cfg: ArchConfig, *, positions: torch.Tensor,
-                   window: Optional[int] = None, causal: bool = True):
-    """Full-sequence self-attention (prefill / forward). Returns
-    (out (B, S, D), (k, v)) with k, v in (B, S, Hkv, Dh) for the caches.
+                   window: Optional[int] = None, causal: bool = True,
+                   kv_src: Optional[torch.Tensor] = None):
+    """Full-sequence attention (prefill / forward). Returns (out (B, S, D),
+    (k, v)) with k, v in (B, S, Hkv, Dh) for the caches; with ``kv_src``
+    (B, S_vis, D) cross attention to it (no RoPE, not causal, through
+    :func:`cross_attention`), whose k, v (B, S_vis, Hkv, Dh) are the cross
+    layer's cache.
 
     The Hkv heads go to the kernel as they are (query head h reads KV head
     h // group): the reference repeats K/V to Hq heads for its tensor-
@@ -159,7 +199,10 @@ def attention_full(p: Attention, x: torch.Tensor, cfg: ArchConfig, *, positions:
     as (B, H, S, Dh) views of the projections, and the output comes back
     in (B, S, H, Dh) memory, so neither side is copied on the card.
     """
-    q, k, v = _project_qkv(p, x, cfg, positions)
+    q, k, v = _project_qkv(p, x, cfg, positions, kv_src)
+    if kv_src is not None:
+        out = cross_attention(q, k, v, scale=_query_scale(cfg), softcap=cfg.attn_logit_softcap)
+        return _out_proj(out, p), (k, v)
     out = flash_attention(q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2),
                           scale=_query_scale(cfg), causal=causal, window=window,
                           softcap=cfg.attn_logit_softcap)
@@ -228,6 +271,17 @@ def attention_decode(p: Attention, x: torch.Tensor, cfg: ArchConfig, *, cache: d
     out = torch.einsum("bhgqc,bchk->bqhgk", probs, v_eff.float())
     out = out.reshape(b, 1, hq, dh).to(x.dtype)
     return _out_proj(out, p), cache
+
+
+def cross_attention_decode(p: Attention, x: torch.Tensor, cfg: ArchConfig, *,
+                           cross_k: torch.Tensor, cross_v: torch.Tensor) -> torch.Tensor:
+    """Decode-time cross attention of x (B, 1, D) against the cached vision
+    K/V (B, S_vis, Hkv, Dh), which stay as they are. No soft-cap, as in the
+    reference's decode."""
+    q = _project(x, p.wq)
+    if cfg.qk_norm:
+        q = rms_head_norm(p.q_norm, q, cfg.norm_eps)
+    return _out_proj(cross_attention(q, cross_k, cross_v, scale=_query_scale(cfg)), p)
 
 
 # ------------------------------------------------------------------- mlps --

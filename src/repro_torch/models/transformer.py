@@ -10,11 +10,14 @@ of blocks in layer order, run by a Python loop (layer ``r·len(pattern) +
 i`` is repeat r, pattern position i), and :func:`_pattern_split` keeps
 "repeat" meaning what it means there.
 
-Block kinds here: attn | local | rglru. Each is a pre-norm residual mixer
-(attention, or the RG-LRU recurrent mixer) followed by a residual MLP, or
-an MoE when ``cfg.moe_experts`` (whose load-balancing loss the trunk
-sums). The other kinds (cross, mlstm, slstm) wait for their modules
-(ROADMAP A14).
+Block kinds: attn | local | cross | rglru | mlstm | slstm. Each is a
+pre-norm residual mixer (self-attention, cross attention to the projected
+vision tokens, the RG-LRU mixer, or an xLSTM cell). The attention-family
+and rglru blocks are followed by a residual MLP, or an MoE when
+``cfg.moe_experts`` (whose load-balancing loss the trunk sums); a cross
+block scales both sub-blocks by tanh of its gates (zero at init, so a fresh
+cross block is the identity). The xLSTM kinds are self-contained
+(cfg.d_ff == 0). An unknown kind raises ``ValueError``.
 """
 
 from __future__ import annotations
@@ -28,39 +31,41 @@ from repro_torch.configs.base import ArchConfig
 from repro_torch.models import layers as L
 from repro_torch.models import moe as moe_lib
 from repro_torch.models import rglru as rg
+from repro_torch.models import xlstm as xl
 
-ATTN_KINDS = ("attn", "local")
-KINDS = ATTN_KINDS + ("rglru",)
-
-
-def check_supported(cfg: ArchConfig) -> None:
-    """Raise ``NotImplementedError`` for what this port does not run yet."""
-    kinds = sorted(set(cfg.layer_kinds) - set(KINDS))
-    missing = ([f"block kinds {kinds}"] if kinds else []) + [
-        what for what, on in (("audio codebooks", cfg.num_codebooks),
-                              ("vision cross-attention", cfg.vision_tokens),
-                              (f"{cfg.pos_embedding} positions", cfg.pos_embedding == "sinusoidal"))
-        if on]
-    if missing:
-        raise NotImplementedError(f"{cfg.name}: {', '.join(missing)} are not ported yet "
-                                  "(ROADMAP A14)")
+ATTN_KINDS = ("attn", "local", "cross")
+XLSTM_KINDS = ("mlstm", "slstm")
+KINDS = ATTN_KINDS + ("rglru",) + XLSTM_KINDS
 
 
 # ----------------------------------------------------------------- blocks --
 
 class Block(nn.Module):
-    """One block: pre_norm → attn | rglru → [post_norm] → residual, then
-    pre_mlp_norm → mlp | moe → [post_mlp_norm] → residual."""
+    """One block: pre_norm → attn | cross | rglru | mlstm | slstm →
+    [post_norm] → residual, then (not for the xLSTM kinds) pre_mlp_norm →
+    mlp | moe → [post_mlp_norm] → residual. A cross block holds the scalar
+    gates ``gate_attn`` and ``gate_mlp``."""
 
     def __init__(self, cfg: ArchConfig, kind: str, device=None):
         super().__init__()
+        if kind not in KINDS:
+            raise ValueError(kind)
         self.kind = kind
         self.pre_norm = L.Norm(cfg, device=device)
-        if kind == "rglru":
-            self.rglru = rg.RGLRU(cfg, device=device)
-        else:
+        if kind in ATTN_KINDS:
             self.attn = L.Attention(cfg, device=device)
+        elif kind == "rglru":
+            self.rglru = rg.RGLRU(cfg, device=device)
+        elif kind == "mlstm":
+            self.mlstm = xl.MLSTM(cfg, device=device)
+        else:
+            self.slstm = xl.SLSTM(cfg, device=device)
+        if kind == "cross":
+            self.gate_attn = L.param((), torch.float32, device)
+            self.gate_mlp = L.param((), torch.float32, device)
         self.post_norm = L.Norm(cfg, device=device) if cfg.post_norms else None
+        if kind in XLSTM_KINDS:
+            return
         self.pre_mlp_norm = L.Norm(cfg, device=device)
         if cfg.moe_experts:
             self.moe = moe_lib.MoE(cfg, device=device)
@@ -71,18 +76,27 @@ class Block(nn.Module):
     def init_(self, gen: torch.Generator) -> None:
         for m in self.children():
             m.init_(gen)
+        if self.kind == "cross":
+            self.gate_attn.zero_()
+            self.gate_mlp.zero_()
 
 
 def init_block_cache(cfg: ArchConfig, kind: str, batch: int, cache_len: int, device) -> dict:
-    """Static-shape decode cache for one block (zeros): K/V slots, or an
-    ``rglru`` block's recurrent state."""
+    """Static-shape decode cache for one block (zeros): K/V slots (a cross
+    block's hold the ``vision_tokens`` K/V, never int8), or a recurrent
+    block's state."""
     if kind == "rglru":
         return rg.init_recurrent_state(cfg, batch, device)
+    if kind == "mlstm":
+        return xl.init_mlstm_state(cfg, batch, device)
+    if kind == "slstm":
+        return xl.init_slstm_state(cfg, batch, device)
     if kind not in ATTN_KINDS:
-        raise NotImplementedError(f"block kind {kind!r} is not ported yet (ROADMAP A14)")
-    cap = min(cfg.local_window or cache_len, cache_len) if kind == "local" else cache_len
+        raise ValueError(kind)
+    cap = {"cross": cfg.vision_tokens,
+           "local": min(cfg.local_window or cache_len, cache_len)}.get(kind, cache_len)
     shape = (batch, cap, cfg.num_kv_heads, cfg.head_dim)
-    if cfg.kv_quant:
+    if cfg.kv_quant and kind != "cross":
         return {"k": torch.zeros(shape, dtype=torch.int8, device=device),
                 "v": torch.zeros(shape, dtype=torch.int8, device=device),
                 "k_scale": torch.zeros(shape[:3], dtype=torch.float32, device=device),
@@ -102,28 +116,49 @@ def _residual(x: torch.Tensor, out: torch.Tensor, norm: Optional[L.Norm],
     return x + out
 
 
+def _gated(p: Block, out: torch.Tensor, gate: str) -> torch.Tensor:
+    """A cross block's sub-block output scaled by tanh of its gate (f32 tanh,
+    cast); other blocks' as they are."""
+    if p.kind != "cross":
+        return out
+    return out * torch.tanh(getattr(p, gate)).to(out.dtype)
+
+
 def _mlp_residual(p: Block, x: torch.Tensor, cfg: ArchConfig):
     """The MLP (or MoE) sub-block: (x, the MoE's aux loss () f32, or None for
-    a dense MLP)."""
+    a dense MLP). The xLSTM blocks have none: (x, None)."""
+    if p.kind in XLSTM_KINDS:
+        return x, None
     h2 = L.apply_norm(p.pre_mlp_norm, x, cfg)
     if cfg.moe_experts:
         out, aux = moe_lib.apply_moe(p.moe, h2, cfg)
     else:
         out, aux = L.apply_mlp(p.mlp, h2, cfg), None
-    return _residual(x, out, p.post_mlp_norm, cfg), aux
+    return _residual(x, _gated(p, out, "gate_mlp"), p.post_mlp_norm, cfg), aux
 
 
 def _window(p: Block, cfg: ArchConfig) -> Optional[int]:
     return cfg.local_window if p.kind == "local" else None
 
 
-def apply_block_full(p: Block, x: torch.Tensor, cfg: ArchConfig, *, positions: torch.Tensor):
-    """Train/prefill block. Returns (x, cache_init, aux loss or None for a
-    dense MLP): the cache is None for an ``rglru`` block (prefill returns no
-    recurrent state, as in the reference)."""
+def apply_block_full(p: Block, x: torch.Tensor, cfg: ArchConfig, *, positions: torch.Tensor,
+                     vis_kv: Optional[torch.Tensor] = None):
+    """Train/prefill block. ``vis_kv``: the projected vision tokens (B, S_vis,
+    D) a cross block attends to. Returns (x, cache_init, aux loss or None for
+    a dense MLP): the cache is None for an ``rglru``, ``mlstm`` or ``slstm``
+    block (prefill returns no recurrent state, as in the reference)."""
     h = L.apply_norm(p.pre_norm, x, cfg)
     if p.kind == "rglru":
         out, cache = rg.apply_recurrent_block(p.rglru, h, cfg)
+    elif p.kind == "mlstm":
+        out, cache = xl.apply_mlstm(p.mlstm, h, cfg)
+    elif p.kind == "slstm":
+        out, cache = xl.apply_slstm(p.slstm, h, cfg)
+    elif p.kind == "cross":
+        if vis_kv is None:
+            raise ValueError(f"{cfg.name}: a cross layer needs vision_embeds")
+        out, (k, v) = L.attention_full(p.attn, h, cfg, positions=positions, kv_src=vis_kv)
+        out, cache = _gated(p, out, "gate_attn"), {"k": k, "v": v}
     else:
         out, (k, v) = L.attention_full(p.attn, h, cfg, positions=positions,
                                        window=_window(p, cfg))
@@ -140,10 +175,18 @@ def apply_block_full(p: Block, x: torch.Tensor, cfg: ArchConfig, *, positions: t
 
 def apply_block_decode(p: Block, x: torch.Tensor, cfg: ArchConfig, *, pos: int, cache: dict):
     """Single-token decode block; updates ``cache`` (K/V slots or recurrent
-    state) in place. Returns (x, cache)."""
+    state) in place; a cross block reads its vision K/V and leaves them.
+    Returns (x, cache)."""
     h = L.apply_norm(p.pre_norm, x, cfg)
     if p.kind == "rglru":
         out, cache = rg.apply_recurrent_block(p.rglru, h, cfg, state=cache)
+    elif p.kind == "mlstm":
+        out, cache = xl.apply_mlstm(p.mlstm, h, cfg, state=cache)
+    elif p.kind == "slstm":
+        out, cache = xl.apply_slstm(p.slstm, h, cfg, state=cache)
+    elif p.kind == "cross":
+        out = _gated(p, L.cross_attention_decode(p.attn, h, cfg, cross_k=cache["k"],
+                                                 cross_v=cache["v"]), "gate_attn")
     else:
         out, cache = L.attention_decode(p.attn, h, cfg, cache=cache, pos=pos,
                                         window=_window(p, cfg))
@@ -165,7 +208,6 @@ class Trunk(nn.Module):
 
     def __init__(self, cfg: ArchConfig, device=None):
         super().__init__()
-        check_supported(cfg)
         self.layers = nn.ModuleList(Block(cfg, kind, device) for kind in cfg.layer_kinds)
 
     def init_(self, gen: torch.Generator) -> None:
@@ -179,11 +221,11 @@ def init_trunk_cache(cfg: ArchConfig, batch: int, cache_len: int, device) -> lis
 
 
 def apply_trunk_full(trunk: Trunk, x: torch.Tensor, cfg: ArchConfig, *, positions: torch.Tensor,
-                     collect_cache: bool = False):
+                     vis_kv: Optional[torch.Tensor] = None, collect_cache: bool = False):
     """Returns (x, per-layer caches or None, aux loss summed over the layers)."""
     caches, aux = [], torch.zeros((), device=x.device)
     for blk in trunk.layers:
-        x, cache, a = apply_block_full(blk, x, cfg, positions=positions)
+        x, cache, a = apply_block_full(blk, x, cfg, positions=positions, vis_kv=vis_kv)
         if a is not None:
             aux = aux + a
         if collect_cache:

@@ -614,6 +614,63 @@ def test_smoke_model_on_the_card_equals_the_cpu(gen):
     assert _build.LAUNCHES["flash_attention"] == before
 
 
+@pytest.mark.parametrize("arch", ["xlstm-125m", "llama-3.2-vision-11b", "musicgen-medium"])
+def test_family_smoke_model_on_the_card_equals_the_cpu(gen, arch):
+    """The xLSTM, vision and audio smoke models (attention at head_dim 64,
+    the kernel's smallest; the vision model's gates planted non-zero, 0.8
+    and −0.6): the forward on the card launches the kernel once per self-
+    attention layer (none for cross attention or xLSTM), then prefill and
+    four decode steps launch none, and every logit equals the CPU's within
+    1e-4 of scale."""
+    from repro_torch.launch import serve
+
+    cfg = get_config(arch, smoke=True)
+    if cfg.family != "ssm":
+        cfg = dataclasses.replace(cfg, head_dim=64)
+    model = M.init_params(cfg, device="cpu")
+    for blk in model.blocks.layers:
+        if blk.kind == "cross":
+            blk.gate_attn.fill_(0.8)
+            blk.gate_mlp.fill_(-0.6)
+    model_gpu = M.init_params(cfg, device="cpu")
+    model_gpu.load_state_dict(model.state_dict())
+    model_gpu = model_gpu.to("cuda")
+    g = torch.Generator().manual_seed(0)
+    shape = (2, cfg.num_codebooks, 40) if cfg.num_codebooks else (2, 40)
+    toks = torch.randint(0, cfg.vocab_size, shape, generator=g)
+    vis = (torch.randn(2, cfg.vision_tokens, cfg.vision_dim, generator=g) if cfg.vision_tokens
+           else None)
+    on_gpu = lambda t: None if t is None else t.cuda()  # noqa: E731
+    before = _build.LAUNCHES["flash_attention"]
+    got, _, _ = M.forward(model_gpu, toks.cuda(), cfg, vision_embeds=on_gpu(vis))
+    torch.cuda.synchronize()
+    assert _build.LAUNCHES["flash_attention"] - before == sum(
+        k in ("attn", "local") for k in cfg.layer_kinds)
+    want, _, _ = M.forward(model, toks, cfg, vision_embeds=vis)
+    _close(got.cpu(), want, 1e-4)
+
+    def replay(m, dev):
+        """Four decode steps after a prefill of 36 (cross K/V from the
+        prefill), or from an empty state for xLSTM (no prefill state)."""
+        t = toks.to(dev)
+        if cfg.family == "ssm":
+            caches, s = T.init_trunk_cache(cfg, 2, 4, dev), 0
+        else:
+            batch = {"tokens": t[..., :36]}
+            if vis is not None:
+                batch["vision_embeds"] = vis.to(dev)
+            _, pre = M.prefill_step(m, batch, cfg)
+            caches, s = serve.place_prefill(cfg, pre, 2, 40), 36
+        before = _build.LAUNCHES["flash_attention"]
+        out = [M.decode_step(m, t[..., s + i:s + i + 1], s + i, caches, cfg)[0]
+               for i in range(4)]
+        return torch.cat(out, dim=1), _build.LAUNCHES["flash_attention"] - before
+
+    dec_gpu, launched = replay(model_gpu, "cuda")
+    assert launched == 0
+    _close(dec_gpu.cpu(), replay(model, "cpu")[0], 1e-4)
+
+
 # ---------------------------------------------------------------------------
 # The serving core on the card
 # ---------------------------------------------------------------------------

@@ -91,32 +91,41 @@ def test_configs_equal_the_reference_field_for_field(arch, smoke):
 
 
 def test_registry_names_only_what_the_port_runs():
-    # the dense trunks here; the MoE and RG-LRU ones in test_torch_moe / _rglru
-    assert base.list_archs() == sorted(ARCHS + ["olmoe-1b-7b", "qwen3-moe-30b-a3b",
-                                                "recurrentgemma-2b"])
-    assert set(base.list_archs()) < set(ref_base.list_archs())
+    # every family of the reference: dense here; MoE, RG-LRU, xLSTM, vision
+    # and audio in test_torch_moe / _rglru / _xlstm / _modality
+    assert base.list_archs() == ref_base.list_archs()
+    assert set(ARCHS) < set(base.list_archs())
     with pytest.raises(KeyError, match="unknown arch"):
-        base.get_config("xlstm-125m")
+        base.get_config("gpt-2")
     cfg = base.apply_overrides(base.get_config("gemma2-2b"), ["num_layers=4", "kv_quant=true",
                                                               "norm_eps=1e-5"])
     want = ref_base.apply_overrides(ref_base.get_config("gemma2-2b"),
                                     ["num_layers=4", "kv_quant=true", "norm_eps=1e-5"])
     assert dataclasses.asdict(cfg) == dataclasses.asdict(want)
+    # every smoke config initialises on the CPU; every full config builds
+    # (on the meta device: llama-vision's 9.8 B weights are not allocated)
+    for arch in base.list_archs():
+        smoke_cfg, full_cfg = base.get_config(arch, smoke=True), base.get_config(arch)
+        assert M.count_params(M.init_params(smoke_cfg, device="cpu")) > 0
+        assert M.count_params(M.Model(full_cfg, "meta")) > 0
 
 
 def test_other_families_raise_naming_the_roadmap():
+    """Nothing is left to refuse: an unknown block kind raises ValueError in
+    both packages, in the trunk and in its decode caches."""
     cfg = dataclasses.replace(base.get_config("gemma2-2b", smoke=True),
-                              layer_pattern=("mlstm", "local"))
-    with pytest.raises(NotImplementedError, match="A14"):
+                              layer_pattern=("mamba", "local"))
+    cfg_ref = dataclasses.replace(ref_base.get_config("gemma2-2b", smoke=True),
+                                  layer_pattern=("mamba", "local"))
+    with pytest.raises(ValueError, match="mamba"):
         M.init_params(cfg, device="cpu")
-    with pytest.raises(NotImplementedError, match="A14"):
-        M.Model(dataclasses.replace(base.get_config("minicpm-2b", smoke=True), num_codebooks=4),
-                "cpu")
-    for kind in ("cross", "slstm"):
-        with pytest.raises(NotImplementedError, match="A14"):
-            T.check_supported(dataclasses.replace(cfg, layer_pattern=(kind,)))
-    for arch in ("olmoe-1b-7b", "qwen3-moe-30b-a3b", "recurrentgemma-2b"):
-        T.check_supported(base.get_config(arch))
+    with pytest.raises(ValueError, match="mamba"):
+        T.init_block_cache(cfg, "mamba", 1, 8, "cpu")
+    with pytest.raises(ValueError, match="mamba"):
+        RM.init_params(jax.random.PRNGKey(0), cfg_ref)
+    with pytest.raises(ValueError, match="mamba"):
+        RT.init_block_cache(cfg_ref, "mamba", 1, 8)
+    assert not hasattr(T, "check_supported")
 
 
 # ------------------------------------------------------------------ model ----
