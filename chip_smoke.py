@@ -132,6 +132,25 @@ way (bf16, random weights from a seed, an f32 copy as the yardstick):
   an empty state against the forward over 256 tokens in bf16 and f32,
   ``generate``'s refusal; then its probe (lm_xlstm_probe, 6 points);
 
+then training (phase train):
+
+* gemma2-2b uncut (26 layers, vocabulary 256,000, bf16 parameters, f32
+  master weights and moments, remat per layer): 4 steps of
+  ``train.trainer.Trainer`` on ``TokenStream(256,000, 1,024, batch 2,
+  seed 0)``, checkpoints off: step 1's and the warm steps' seconds and
+  tokens/s, loss, grad norm and lr per step, the peak memory, the flash
+  launches per step (exactly 2 × 26: the forward and the recompute; the
+  backward launches nothing); step 1's loss near ln V; step 1 again from
+  the same seed with attention on attention_ref, held to the bf16
+  yardstick (that run against an f32 copy); a second step on the same
+  batch below 1.5× the first;
+* the restart: xlstm-125m at full width, vocabulary 2,048, f32, 8 × 128
+  (the example's model): 3 steps, an async checkpoint, a new Trainer
+  resuming at step 3 with the data cursor (every restored tensor equal
+  to the saved one), 3 more steps, against 6 uninterrupted steps (losses
+  within 1e-5 relative); the checkpoint's bytes and its snapshot, write
+  and restore seconds;
+
 and, after the build, ``python -m repro_torch.analysis`` (lint: reprolint
 for the port) as a process, which must exit 0.
 
@@ -209,11 +228,13 @@ import collections
 import contextlib
 import dataclasses
 import json
+import math
 import os
 import re
 import statistics
 import subprocess
 import sys
+import tempfile
 import time
 from pathlib import Path
 
@@ -307,6 +328,20 @@ LM_AUDIO_ARCH, LM_VISION_ARCH, LM_XLSTM_ARCH = "musicgen-medium", "llama-3.2-vis
     "xlstm-125m"
 VISION_GATES = (0.8, -0.6)
 XLSTM_QUADRATIC = 2000   # S of the one-chunk (masked-quadratic) mLSTM forward
+# Training (phase train): gemma2-2b uncut (bf16 parameters, f32 master and
+# moments, remat per layer) for TRAIN_STEPS Trainer steps at B × S =
+# TRAIN_BATCH × TRAIN_SEQ of the token stream, checkpoints off; then the
+# restart check on the example's model (xlstm-125m full width, vocabulary
+# 2,048, f32) at 8 × 128: TRAIN_RESTART_AT steps, a checkpoint, a resumed
+# Trainer to 2 × TRAIN_RESTART_AT, against an uninterrupted run.
+TRAIN_ARCH = LM_ARCH
+TRAIN_STEPS, TRAIN_BATCH, TRAIN_SEQ, TRAIN_LR = 4, 2, 1024, 3e-4
+TRAIN_RESTART_AT, TRAIN_RESTART_BATCH, TRAIN_RESTART_SEQ, TRAIN_RESTART_VOCAB = 3, 8, 128, 2048
+# a random model's first loss lies within this of ln V (its logits are ~0)
+TRAIN_LOSS0_BAND = 1.0
+# the restarted xLSTM's losses against the uninterrupted run's: the embedding
+# backward's atomics on the card reorder its sums
+TOL_RESTART = 1e-5
 # λ per point = tr(G_c)/N of that point's features (the MEG/EEG paths' rule):
 # the residual stream's scale grows about 19× from the first to the last point
 PROBE_PER_CLASS, PROBE_SEQ, PROBE_FOLDS = 192, 128, 6
@@ -321,6 +356,9 @@ TOL_ATTN_BF16_ULPS = 2.0
 # against attention_ref; decode against the forward): each strays from the
 # same weights in f32 by E, the plain bf16 model's distance from the f32
 # one, measured in the run; two such evaluations lie within 2E of each other.
+# The train step's loss and grad norm (the kernel against attention_ref) are
+# held to 2E alone: a random model's loss is ~ln V whatever attention
+# computes, so a floor of TOL_LM_F32 × |loss| would pass a wrong kernel.
 TOL_LM_YARDSTICK = 2.0
 # The same comparisons on the f32 copy of the weights (the kernel against
 # attention_ref; decode against the kernel's forward, at the real window and
@@ -2748,6 +2786,186 @@ def lm_xlstm_phase(dev):
     return launches, launches_probe
 
 
+def _train_state(trainer) -> list:
+    from repro_torch.train import checkpoint as ckpt
+    from repro_torch.train import steps
+
+    return ckpt.flatten({"params": steps.trainable(trainer.params),
+                          "opt_state": trainer.opt_state})
+
+
+def _grad_norm(grads: dict) -> float:
+    return float(torch.sqrt(sum(torch.sum(g.float() * g.float()) for g in grads.values())))
+
+
+def train_phase(dev) -> dict:
+    """Training on the card. (a) gemma2-2b uncut, bf16, remat: TRAIN_STEPS
+    steps of the Trainer on the token stream (checkpoints off), each step's
+    seconds, tokens/s, loss, grad norm, lr and flash launches, the peak
+    memory; then, from the same seed, step 1's loss and grad norm on
+    attention_ref, and on an f32 copy (the yardstick: the kernel's run is
+    held to TOL_LM_YARDSTICK × the plain run's distance from it, no floor),
+    and two steps on one batch. The kernel at this step's shape is held
+    against attention_ref elementwise in ``main``'s ``attn_cases``. (b) The example's xlstm-125m (full width, vocabulary 2,048, f32)
+    restarted from a checkpoint against an uninterrupted run."""
+    import shutil
+
+    from repro_torch.configs.base import get_config
+    from repro_torch.data.tokens import TokenStream, TokenStreamConfig
+    from repro_torch.kernels import _build
+    from repro_torch.models import model as M
+    from repro_torch.optim import optimizer as O
+    from repro_torch.train import checkpoint as ckpt
+    from repro_torch.train import steps
+    from repro_torch.train.trainer import Trainer, TrainerConfig
+
+    root = Path(__file__).resolve().parent
+    cfg = get_config(TRAIN_ARCH)
+    opt = O.AdamWConfig(lr_peak=TRAIN_LR, warmup_steps=1, total_steps=TRAIN_STEPS)
+    scfg = TokenStreamConfig(vocab_size=cfg.vocab_size, seq_len=TRAIN_SEQ,
+                             global_batch=TRAIN_BATCH, seed=SEED)
+    tokens = TRAIN_BATCH * TRAIN_SEQ
+
+    # (a) the Trainer: every launch of its run counted, and per step
+    torch.cuda.reset_peak_memory_stats()
+    off_dir = tempfile.mkdtemp(prefix=".chip_smoke_ckpt-", dir=root)   # stays empty
+    trainer, t_init = timed(lambda: Trainer(cfg, opt, TrainerConfig(
+        total_steps=TRAIN_STEPS, log_every=1, checkpoint_every=10 ** 9,
+        checkpoint_dir=off_dir), TokenStream(scfg, device=dev), seed=SEED))
+    inner, per_step = trainer._step_fn, []
+
+    def step_counted(*args, **kwargs):
+        before = dict(_build.LAUNCHES)
+        out = inner(*args, **kwargs)
+        per_step.append({k: _build.LAUNCHES[k] - before[k] for k in before})
+        return out
+
+    trainer._step_fn = step_counted
+    reset_counts()
+    summary = trainer.run()
+    launches = counts()
+    peak = {"allocated_gib": torch.cuda.max_memory_allocated() / 2**30,
+            "reserved_gib": torch.cuda.max_memory_reserved() / 2**30}
+    log = summary["log"]
+    n_params = M.count_params(trainer.params)
+    del trainer, inner
+    shutil.rmtree(off_dir, ignore_errors=True)
+    torch.cuda.empty_cache()
+
+    # step 1 again from the same seed: on attention_ref, and an f32 copy on
+    # attention_ref (the yardstick), then two steps on one batch
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(SEED)
+    model = M.init_params(cfg, generator=gen, device=dev).requires_grad_(True)
+    batch = TokenStream(scfg, device=dev).next_batch()
+    loss_ref, _, grads = on_attention_ref(lambda: steps.loss_and_grads(model, batch, cfg))
+    gn_ref = _grad_norm(grads)
+    del grads
+    model32, cfg32 = f32_twin(model, cfg, dev)
+    model32.requires_grad_(True)
+    loss32, _, grads = on_attention_ref(lambda: steps.loss_and_grads(model32, batch, cfg32))
+    gn32 = _grad_norm(grads)
+    del grads, model32
+    torch.cuda.empty_cache()
+    state = O.init_opt_state(steps.trainable(model), opt)
+    step = steps.make_train_step(cfg, opt)
+    same = [{k: float(v) for k, v in step(model, state, batch).items()} for _ in range(2)]
+    del model, state
+    torch.cuda.empty_cache()
+
+    loss1, gn1 = log[0]["loss"], log[0]["grad_norm"]
+    yard = {"loss": abs(float(loss_ref) - float(loss32)), "grad_norm": abs(gn_ref - gn32)}
+    tol = {k: TOL_LM_YARDSTICK * v for k, v in yard.items()}
+    vs_ref = {"loss": {"flash": loss1, "attention_ref": float(loss_ref), "f32": float(loss32),
+                       "err": abs(loss1 - float(loss_ref)), "plain_vs_f32": yard["loss"],
+                       "tol": tol["loss"]},
+              "grad_norm": {"flash": gn1, "attention_ref": gn_ref, "f32": gn32,
+                            "err": abs(gn1 - gn_ref), "plain_vs_f32": yard["grad_norm"],
+                            "tol": tol["grad_norm"]}}
+    warm = [e["sec"] for e in log[1:]]
+    gemma = {"arch": cfg.name, "layers": cfg.num_layers, "d_model": cfg.d_model,
+             "vocab": cfg.vocab_size, "params": n_params, "dtype": cfg.dtype,
+             "param_dtype": cfg.param_dtype, "remat": cfg.remat, "batch": TRAIN_BATCH,
+             "seq": TRAIN_SEQ, "steps": TRAIN_STEPS, "lr_peak": TRAIN_LR,
+             "seconds_init": t_init, "wall_s": summary["wall_s"],
+             "step1_s": log[0]["sec"], "step1_tokens_per_s": tokens / log[0]["sec"],
+             "warm_s": warm, "warm_tokens_per_s": tokens / statistics.median(warm),
+             "loss": [e["loss"] for e in log], "grad_norm": [e["grad_norm"] for e in log],
+             "lr": [e["lr"] for e in log], "ln_vocab": math.log(cfg.vocab_size),
+             "skipped": summary["skipped"], "peak_memory": peak,
+             "flash_per_step": [d["flash_attention"] for d in per_step],
+             "launches_per_step": per_step, "launches": launches,
+             "same_batch": {"loss": [m["loss"] for m in same],
+                            "grad_norm": [m["grad_norm"] for m in same]},
+             "vs_attention_ref": vs_ref}
+
+    # (b) restart on the card: the example's model
+    xcfg = dataclasses.replace(get_config("xlstm-125m"), vocab_size=TRAIN_RESTART_VOCAB,
+                               dtype="float32", param_dtype="float32")
+    xopt = O.AdamWConfig(lr_peak=3e-3, warmup_steps=20, total_steps=2 * TRAIN_RESTART_AT)
+    xscfg = TokenStreamConfig(vocab_size=xcfg.vocab_size, seq_len=TRAIN_RESTART_SEQ,
+                              global_batch=TRAIN_RESTART_BATCH, seed=SEED)
+    ck_dir = tempfile.mkdtemp(prefix=".chip_smoke_ckpt-", dir=root)
+
+    def xtrainer(total, every, directory):
+        return Trainer(xcfg, xopt, TrainerConfig(total_steps=total, log_every=1,
+                                                 checkpoint_every=every,
+                                                 checkpoint_dir=directory),
+                       TokenStream(xscfg, device=dev), seed=SEED)
+
+    try:
+        with clocked(ckpt, "_write", []) as write_s, clocked(ckpt, "save_async", []) as snap_s:
+            first = xtrainer(TRAIN_RESTART_AT, TRAIN_RESTART_AT, ck_dir)
+            r_first = first.run()
+        saved = [(n, t.clone()) for n, t in _train_state(first)]
+        step_dir = Path(ck_dir) / f"step_{TRAIN_RESTART_AT:08d}"
+        ck_bytes = sum(f.stat().st_size for f in step_dir.iterdir())
+        del first
+        with clocked(ckpt, "restore", []) as restore_s:
+            resumed = xtrainer(2 * TRAIN_RESTART_AT, TRAIN_RESTART_AT, ck_dir)
+        start, cursor = resumed.start_step, resumed.stream.step
+        restored_equal = all(torch.equal(t, want) for (_, t), (_, want)
+                             in zip(_train_state(resumed), saved, strict=True))
+        r_resumed = resumed.run()
+        del resumed, saved
+        whole = xtrainer(2 * TRAIN_RESTART_AT, 10 ** 9, str(Path(ck_dir) / "whole"))
+        r_whole = whole.run()
+        del whole
+    finally:
+        shutil.rmtree(ck_dir, ignore_errors=True)
+    got = [e["loss"] for e in r_first["log"] + r_resumed["log"]]
+    want = [e["loss"] for e in r_whole["log"]]
+    rel = max(abs(a - b) / abs(b) for a, b in zip(got, want, strict=True))
+    restart = {"arch": xcfg.name, "vocab": xcfg.vocab_size, "batch": TRAIN_RESTART_BATCH,
+               "seq": TRAIN_RESTART_SEQ, "restart_at": TRAIN_RESTART_AT,
+               "start_step": start, "data_cursor": cursor, "restored_equal": restored_equal,
+               "checkpoint_bytes": ck_bytes, "snapshot_s": snap_s, "write_s": write_s,
+               "restore_s": restore_s, "losses": got, "uninterrupted": want,
+               "max_rel_diff": rel, "tol": TOL_RESTART}
+    emit({"phase": "train", "card": nvidia_smi(), "gemma2": gemma, "restart": restart})
+
+    n = cfg.num_layers
+    if not all(math.isfinite(x) for x in gemma["loss"] + gemma["grad_norm"]) or summary["skipped"]:
+        fail(f"train: non-finite losses or grad norms {gemma['loss']} {gemma['grad_norm']}")
+    if abs(loss1 - math.log(cfg.vocab_size)) > TRAIN_LOSS0_BAND:
+        fail(f"train: step 1's loss {loss1} is not near ln V = {math.log(cfg.vocab_size)}")
+    if not same[1]["loss"] < 1.5 * same[0]["loss"]:
+        fail(f"train: the same batch's second loss {same[1]['loss']} is not below 1.5x the "
+             f"first {same[0]['loss']}")
+    for i, d in enumerate(per_step):
+        expect_exact(f"train step {i + 1}", {**d, "calls": {}}, {"flash_attention": 2 * n})
+    expect_exact("train", launches, {"flash_attention": 2 * n * TRAIN_STEPS})
+    bad = [k for k, v in vs_ref.items() if not v["err"] <= v["tol"]]
+    if bad:
+        fail(f"train: step 1's {bad} disagree with attention_ref beyond the bf16 yardstick")
+    if start != TRAIN_RESTART_AT or cursor != TRAIN_RESTART_AT or not restored_equal:
+        fail(f"train: the resumed Trainer started at {start} (cursor {cursor}), restored "
+             f"tensors equal: {restored_equal}")
+    if not rel <= TOL_RESTART:
+        fail(f"train: the resumed losses differ from the uninterrupted run's by {rel}")
+    return launches
+
+
 def lint_phase() -> None:
     """``python -m repro_torch.analysis`` (reprolint for the port) over the
     port's tree, as a process on this machine's Python."""
@@ -3216,6 +3434,9 @@ def main() -> None:
     torch.cuda.empty_cache()
     launches_xlstm, launches_xlstm_probe = lm_xlstm_phase(dev)
     torch.cuda.empty_cache()
+    # training: gemma2-2b uncut through the Trainer, and a restart
+    launches_train = train_phase(dev)
+    torch.cuda.empty_cache()
 
     # -- 3. every kernel against its plain version on the card -----------------
     plan = fastcv.prepare(x, folds, lam)
@@ -3484,7 +3705,8 @@ def main() -> None:
     # probe's 384 × 128; olmoe's, qwen3-moe's and recurrentgemma's prefills of
     # 4 × 2,048, olmoe's 8,192-token prefill, olmoe's and recurrentgemma's
     # probes at 384 × 128; q/k/v as (B, H, S, D) views of (B, S, H, D) memory,
-    # as attention_full passes them), starcoder2's and minicpm's head widths,
+    # as attention_full passes them; the train step's 2 × 1,024 at gemma2's
+    # local and global layers), starcoder2's and minicpm's head widths,
     # a ragged length, f32 I/O, and the inputs of the cuda-marked test
     # test_flash_attention_kernel[200-None-None-64-bf16] (a seed-0 generator)
     bf16 = torch.bfloat16
@@ -3507,6 +3729,8 @@ def main() -> None:
         ("lm_hybrid_probe", 1, 2 * PROBE_PER_CLASS, 10, 1, PROBE_SEQ, 256, bf16, 2048, None),
         ("lm_audio prefill", 1, LM_BATCH, 24, 24, LM_PROMPT, 64, bf16, None, None),
         ("lm_vision prefill", 1, LM_BATCH, 32, 8, LM_PROMPT, 128, bf16, None, None),
+        ("train local", 1, TRAIN_BATCH, 8, 4, TRAIN_SEQ, 256, bf16, 4096, 50.0),
+        ("train global", 1, TRAIN_BATCH, 8, 4, TRAIN_SEQ, 256, bf16, None, 50.0),
     ]
     attn_inputs = {}
     for case, strided, b_, hq, hkv, s_, d_, dt, win, cap in attn_cases:
@@ -3538,7 +3762,7 @@ def main() -> None:
             row.update(tol=TOL_ATTN_F32, ok=err <= TOL_ATTN_F32 * scale
                        and bool(torch.isfinite(got).all()))
         checks.append(row)
-        if case.startswith("lm_") or case == "f32 I/O":
+        if case.startswith(("lm_", "train")) or case == "f32 I/O":
             attn_inputs[case] = (qa, ka, va, kw, err)
         del got, want
     emit({"phase": "kernel_checks", "checks": checks})
@@ -3593,6 +3817,7 @@ def main() -> None:
                "lm_hybrid": launches_hybrid, "lm_hybrid_probe": launches_hybrid_probe,
                "lm_audio": launches_audio, "lm_audio_probe": launches_audio_probe,
                "lm_vision": launches_vision, "lm_vision_probe": launches_vision_probe,
+               "train": launches_train,
                "lm_xlstm": launches_xlstm, "lm_xlstm_probe": launches_xlstm_probe}
     # the new paths' shapes (launches: the path that runs the shape; the
     # fold_eval LOO rows run only in the tune phase's f64 check)
@@ -3877,14 +4102,15 @@ def main() -> None:
     for case in ("lm_serve global", "lm_serve local", "lm_serve prefill", "lm_probe",
                  "f32 I/O", "lm_moe prefill", "lm_moe_qwen3 prefill", "lm_hybrid prefill",
                  "lm_moe long", "lm_moe_probe", "lm_hybrid_probe", "lm_audio prefill",
-                 "lm_vision prefill"):
+                 "lm_vision prefill", "train global"):
         qa, ka, va, kw, err = attn_inputs[case]
         b_, hq, s_, d_ = qa.shape
         pairs = attention_pairs(s_, kw["window"])
         route = ROUTES[qa.dtype]
         counted = 4 * d_ * pairs * b_ * hq
         issued = (6 if route == "tensor_core" else 4) * d_ * pairs * b_ * hq
-        layout = "views of (B, S, H, D)" if case.startswith("lm_") else "contiguous"
+        layout = ("views of (B, S, H, D)" if case.startswith(("lm_", "train"))
+                  else "contiguous")
         row = {**timing({
             "kernel": lambda qa=qa, ka=ka, va=va, kw=kw: flash_attention(qa, ka, va, **kw),
             "plain": lambda qa=qa, ka=ka, va=va, kw=kw: attention_ref(qa, ka, va, **kw),

@@ -14,6 +14,7 @@ import importlib
 
 _LAZY = {"core": "repro_torch.core", "data": "repro_torch.data",
          "kernels": "repro_torch.kernels", "rsa": "repro_torch.rsa",
+         "optim": "repro_torch.optim", "train": "repro_torch.train",
          "eeg": "repro_torch.data.eeg", "synthetic": "repro_torch.data.synthetic"}
 
 

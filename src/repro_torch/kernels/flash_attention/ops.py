@@ -4,6 +4,13 @@ A CPU tensor takes the plain version (``ref.py``); a CUDA tensor launches
 the kernel (``flash_attention.py``) or raises. Unlike the TPU wrapper it
 pads nothing: ragged S is masked inside the kernel. The inputs are not
 made contiguous either: the kernel reads them through their strides.
+
+On the card the launch goes through :class:`FlashAttentionFn`, so a
+gradient flows through the kernel's output: its forward is the kernel, its
+backward the exact gradient of the same function, taken by recomputing the
+plain version on the saved q, k and v. The JAX package has no backward
+kernel (its training differentiates the plain attention), so the port has
+none either: the backward is plain PyTorch.
 """
 
 from __future__ import annotations
@@ -15,7 +22,33 @@ import torch
 from repro_torch.kernels.flash_attention.flash_attention import SYMBOLS, flash_attention_cuda
 from repro_torch.kernels.flash_attention.ref import attention_ref
 
-__all__ = ["flash_attention"]
+__all__ = ["FlashAttentionFn", "flash_attention"]
+
+#: The forward launch of :class:`FlashAttentionFn` (the CUDA kernel).
+_kernel = flash_attention_cuda
+
+
+class FlashAttentionFn(torch.autograd.Function):
+    """The kernel's output with a gradient. Forward: one launch of the
+    kernel, q, k and v saved. Backward: ``attention_ref`` recomputed on the
+    saved q, k, v under ``torch.enable_grad()`` and differentiated by
+    ``torch.autograd.grad`` (f32 logits (B, Hq, S, S) per call), the exact
+    gradient of the function the kernel computes. It launches nothing: a
+    Hopper backward kernel is later work."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, scale, causal, window, softcap):
+        ctx.save_for_backward(q, k, v)
+        ctx.kw = {"scale": scale, "causal": causal, "window": window, "softcap": softcap}
+        return _kernel(q, k, v, **ctx.kw)
+
+    @staticmethod
+    def backward(ctx, dout):
+        saved = [t.detach().requires_grad_() for t in ctx.saved_tensors]
+        with torch.enable_grad():
+            out = attention_ref(*saved, **ctx.kw)
+        dq, dk, dv = torch.autograd.grad(out, saved, dout)
+        return dq, dk, dv, None, None, None, None
 
 
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *, scale: float,
@@ -25,7 +58,8 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *, scale:
     with Hq % Hkv == 0; query head h reads KV head h // (Hq / Hkv).
 
     float32 and bfloat16 only (math in float32, output in the input type);
-    any other dtype raises ``TypeError``.
+    any other dtype raises ``TypeError``. On the card the output carries a
+    gradient to q, k and v (:class:`FlashAttentionFn`).
     """
     if q.ndim != 4 or k.shape != v.shape or k.ndim != 4:
         raise ValueError(f"flash_attention: need 4-D q and equal 4-D k, v; got "
@@ -42,5 +76,4 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *, scale:
     if q.device.type == "cpu":
         return attention_ref(q, k, v, scale=scale, causal=causal, window=window,
                              softcap=softcap)
-    return flash_attention_cuda(q, k, v, scale=scale, causal=causal, window=window,
-                                softcap=softcap)
+    return FlashAttentionFn.apply(q, k, v, scale, causal, window, softcap)

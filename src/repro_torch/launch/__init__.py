@@ -1,2 +1,2 @@
-# Command-line launchers of the LLM substrate: serve (prefill + greedy decode)
-# and probe (analytical-CV permutation tests on layer representations).
+# Command-line launchers of the LLM substrate: serve (prefill + greedy decode),
+# probe (analytical-CV permutation tests on layer representations) and train.

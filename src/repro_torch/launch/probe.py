@@ -31,6 +31,7 @@ from repro_torch.models import model as M
 from repro_torch.models import transformer as T
 
 
+@torch.no_grad()
 def layerwise_hidden_states(params: M.Model, tokens: torch.Tensor, cfg: ArchConfig,
                             vision_embeds: Optional[torch.Tensor] = None) -> torch.Tensor:
     """Forward pass capturing the residual stream after every block repeat.
@@ -40,7 +41,7 @@ def layerwise_hidden_states(params: M.Model, tokens: torch.Tensor, cfg: ArchConf
     d_model) float32 — one feature set per repeat of the layer pattern (the
     tail is not a point), mean-pooled over the sequence in the compute
     dtype. Every block kind runs (attention, cross attention, RG-LRU,
-    xLSTM, MoE MLPs).
+    xLSTM, MoE MLPs). Runs under ``torch.no_grad()``.
     """
     positions = M._positions(tokens.shape[-1], tokens.device)
     h = M._embed(params, tokens, cfg, positions)

@@ -79,6 +79,7 @@ def place_prefill(cfg: ArchConfig, prefill_caches: list, batch: int, total_len: 
     return caches
 
 
+@torch.no_grad()
 def generate(params: M.Model, prompts: torch.Tensor, gen_len: int, cfg: ArchConfig, *,
              vision_embeds: Optional[torch.Tensor] = None):
     """Prefill ``prompts`` (B, S), or (B, K, S) over K codebooks (with
@@ -88,7 +89,8 @@ def generate(params: M.Model, prompts: torch.Tensor, gen_len: int, cfg: ArchConf
     Returns (tokens (B, gen_len) or (B, K, gen_len), stats): the first token
     comes from the prefill's last logits. stats holds the prefill and decode
     seconds, decode tokens/s (a step's K codebook tokens count as one) and
-    the caches' bytes.
+    the caches' bytes. Runs under ``torch.no_grad()``: a model whose
+    parameters require grad builds no graph here.
     """
     b, s = prompts.shape[0], prompts.shape[-1]
     check_prefill_state(cfg)

@@ -65,6 +65,7 @@ from __future__ import annotations
 
 import argparse
 import asyncio
+import contextlib
 import os
 import threading
 import time
@@ -360,11 +361,20 @@ def serve_http(engine, args, record):
     from repro_torch.serve.http import HTTPEdge
 
     # Process supervisors (systemd, docker stop, k8s) stop services with
-    # SIGTERM; route it through KeyboardInterrupt so the shutdown path —
-    # the store flush and the --record-traffic dump below — runs either way.
+    # SIGTERM. Until the loop runs, route it through KeyboardInterrupt so the
+    # shutdown path — the store flush and the --record-traffic dump below —
+    # runs either way.
     signal.signal(signal.SIGTERM, signal.default_int_handler)
 
     async def run_edge():
+        # Once the loop runs, SIGINT and SIGTERM become loop callbacks. An
+        # exception raised asynchronously inside the loop can land between
+        # a transport's close and its server's bookkeeping, and then
+        # Server.wait_closed() waits forever for a connection already gone.
+        loop = asyncio.get_running_loop()
+        stop = asyncio.Event()
+        for sig in (signal.SIGINT, signal.SIGTERM):
+            loop.add_signal_handler(sig, stop.set)
         edge = HTTPEdge(engine, host=args.http_host, port=args.http,
                         record=record)
         await edge.start()
@@ -373,13 +383,13 @@ def serve_http(engine, args, record):
               f"GET /v1/stats, /v1/datasets, /v1/metrics, /v1/trace, "
               f"/healthz)", flush=True)
         try:
-            await edge.serve_forever()
+            await stop.wait()
         finally:
             await edge.stop()
 
     try:
-        asyncio.run(run_edge())
-    except KeyboardInterrupt:
+        with contextlib.suppress(KeyboardInterrupt):
+            asyncio.run(run_edge())
         print("[serve_cv] http edge shut down", flush=True)
     finally:
         # The edge's stop path flushes too, but a KeyboardInterrupt can

@@ -166,6 +166,26 @@ def _query_scale(cfg: ArchConfig) -> float:
     return cfg.query_scale if cfg.query_scale is not None else cfg.head_dim ** -0.5
 
 
+def _graph_needed(t: torch.Tensor) -> bool:
+    return torch.is_grad_enabled() and t.requires_grad
+
+
+def scale_(t: torch.Tensor, c: float) -> torch.Tensor:
+    """t · c, in place on a fresh ``t`` unless a gradient needs it (at a
+    256,000 vocabulary each copy of the logits is GBs)."""
+    return t * c if _graph_needed(t) else t.mul_(c)
+
+
+def softcap_(t: torch.Tensor, c: float) -> torch.Tensor:
+    """c · tanh(t / c): division, tanh and multiplication in this order, in
+    place on a fresh ``t`` unless a gradient needs it (``mul_`` would
+    overwrite the output that ``tanh_`` saved for its backward). Both
+    forms give the same bits."""
+    if _graph_needed(t):
+        return torch.tanh(t / c) * c
+    return t.div_(c).tanh_().mul_(c)
+
+
 def cross_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *, scale: float,
                     softcap: Optional[float] = None) -> torch.Tensor:
     """Non-causal attention of q (B, Sq, Hq, Dh) over every key of k, v
@@ -175,9 +195,9 @@ def cross_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *, scale:
     b, sq, hq, dh = q.shape
     hkv = k.shape[2]
     qg = q.reshape(b, sq, hkv, hq // hkv, dh)
-    logits = torch.einsum("bqhgd,bkhd->bhgqk", qg.float(), k.float()).mul_(scale)
+    logits = scale_(torch.einsum("bqhgd,bkhd->bhgqk", qg.float(), k.float()), scale)
     if softcap is not None:
-        logits.div_(softcap).tanh_().mul_(softcap)
+        logits = softcap_(logits, softcap)
     probs = torch.softmax(logits, dim=-1)
     del logits
     out = torch.einsum("bhgqk,bkhd->bqhgd", probs, v.float())

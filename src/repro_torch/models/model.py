@@ -8,8 +8,8 @@ reference's keys (``embed.tokens``, ``blocks.layers.<i>.attn.wq``,
 ``final_norm.scale``, ``lm_head``), from an explicit ``torch.Generator`` on
 the target device; ``forward`` (with the MoE load-balancing loss),
 ``prefill_step`` and ``decode_step`` (K/V caches and recurrent state,
-updated in place) are the serving programs. Training (``loss_fn``,
-``train_step``) waits for a later slice.
+updated in place) are the serving programs; ``loss_fn`` is the training
+objective (``repro_torch.train.steps`` differentiates it).
 
 Modality stubs, as in the reference: [vlm] takes precomputed patch
 embeddings (B, vision_tokens, vision_dim) through a linear projector
@@ -107,12 +107,10 @@ def _unembed(params: Model, h: torch.Tensor, cfg: ArchConfig) -> torch.Tensor:
         logits = hf @ params.embed["tokens"].float().T
     else:
         logits = hf @ params.lm_head.float()
-    # in place on the fresh logits: at a 256,000 vocabulary each copy is GBs
     if cfg.logit_scale is not None:
-        logits.mul_(cfg.logit_scale)
+        logits = L.scale_(logits, cfg.logit_scale)
     if cfg.final_logit_softcap is not None:
-        c = cfg.final_logit_softcap
-        logits.div_(c).tanh_().mul_(c)
+        logits = L.softcap_(logits, cfg.final_logit_softcap)
     return logits
 
 
@@ -148,6 +146,20 @@ def cross_entropy(logits: torch.Tensor, labels: torch.Tensor) -> torch.Tensor:
     m = logits.amax(dim=-1, keepdim=True)
     lse = m[..., 0] + torch.log(torch.exp(logits - m).sum(dim=-1))
     return lse - logits.gather(-1, labels[..., None].long())[..., 0]
+
+
+def loss_fn(params: Model, batch: dict, cfg: ArchConfig):
+    """Mean next-token CE plus the MoE aux loss. batch: ``tokens`` /
+    ``labels`` (B, S), or (B, K, S) with codebooks (labels transposed to
+    (B, S, K) against the (B, S, K, V) logits), and ``vision_embeds`` for a
+    vision model. Returns (loss, {"ce", "aux"})."""
+    logits, _, aux = forward(params, batch["tokens"], cfg,
+                             vision_embeds=batch.get("vision_embeds"))
+    labels = batch["labels"]
+    if cfg.num_codebooks:
+        labels = labels.transpose(1, 2)                  # (B, K, S) -> (B, S, K)
+    ce = cross_entropy(logits, labels).mean()
+    return ce + aux, {"ce": ce, "aux": aux}
 
 
 def prefill_step(params: Model, batch: dict, cfg: ArchConfig):

@@ -26,6 +26,7 @@ from typing import Optional
 
 import torch
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.configs.base import ArchConfig
 from repro_torch.models import layers as L
@@ -203,6 +204,24 @@ def _pattern_split(cfg: ArchConfig):
     return pat, n_rep, tail
 
 
+def stacked_groups(names, cfg: ArchConfig) -> list:
+    """``names`` (parameter names of a model of ``cfg``) grouped as the
+    reference stores them: the blocks of one pattern position over the
+    repeats are one array there (``blocks.stack``), so
+    ``blocks.layers.<r·len(pattern) + i>.<key>`` for every repeat r is one
+    group; a tail layer's and a top-level name are each their own."""
+    pat, n_rep, _ = _pattern_split(cfg)
+    groups: dict = {}
+    for name in names:
+        parts = name.split(".")
+        if parts[:2] == ["blocks", "layers"] and int(parts[2]) < n_rep * len(pat):
+            key = (int(parts[2]) % len(pat), ".".join(parts[3:]))
+        else:
+            key = name
+        groups.setdefault(key, []).append(name)
+    return list(groups.values())
+
+
 class Trunk(nn.Module):
     """The blocks in layer order (repeats of the pattern, then the tail)."""
 
@@ -220,12 +239,35 @@ def init_trunk_cache(cfg: ArchConfig, batch: int, cache_len: int, device) -> lis
     return [init_block_cache(cfg, kind, batch, cache_len, device) for kind in cfg.layer_kinds]
 
 
+def _block_rematerialised(blk: Block, x: torch.Tensor, cfg: ArchConfig, positions: torch.Tensor,
+                          vis_kv: Optional[torch.Tensor]):
+    """(x, aux) of one block whose activations are recomputed in the backward
+    instead of kept (no cache: a training forward collects none)."""
+    def run(x_, vis_kv_):
+        x_, _, a = apply_block_full(blk, x_, cfg, positions=positions, vis_kv=vis_kv_)
+        return x_, a
+
+    return checkpoint(run, x, vis_kv, use_reentrant=False)
+
+
 def apply_trunk_full(trunk: Trunk, x: torch.Tensor, cfg: ArchConfig, *, positions: torch.Tensor,
                      vis_kv: Optional[torch.Tensor] = None, collect_cache: bool = False):
-    """Returns (x, per-layer caches or None, aux loss summed over the layers)."""
+    """Returns (x, per-layer caches or None, aux loss summed over the layers).
+
+    With ``cfg.remat``, a graph being recorded (``x`` requires grad) and no
+    caches to collect, each layer is rematerialised
+    (``torch.utils.checkpoint``, non-reentrant): its forward runs again in
+    the backward, as the reference's ``jax.checkpoint`` per repeat does, and
+    only the layer inputs are kept. The numbers are those of the plain run.
+    Serving (no graph) takes the plain loop."""
+    remat = cfg.remat and torch.is_grad_enabled() and x.requires_grad and not collect_cache
     caches, aux = [], torch.zeros((), device=x.device)
     for blk in trunk.layers:
-        x, cache, a = apply_block_full(blk, x, cfg, positions=positions, vis_kv=vis_kv)
+        if remat:
+            x, a = _block_rematerialised(blk, x, cfg, positions, vis_kv)
+            cache = None
+        else:
+            x, cache, a = apply_block_full(blk, x, cfg, positions=positions, vis_kv=vis_kv)
         if a is not None:
             aux = aux + a
         if collect_cache:

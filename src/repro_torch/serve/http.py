@@ -507,15 +507,17 @@ class HTTPEdge:
 
     async def stop(self) -> None:
         if self._http is not None:
-            self._http.close()
-            await self._http.wait_closed()
-            self._http = None
+            self._http.close()  # no new connections from here on
         # Idle keep-alive connections park in readline() forever; cancel
-        # them so shutdown never strands a handler task.
+        # them so shutdown never strands a handler task. This comes before
+        # wait_closed(), which waits until every connection has dropped.
         for task in list(self._conn_tasks):
             task.cancel()
         if self._conn_tasks:
             await asyncio.gather(*self._conn_tasks, return_exceptions=True)
+        if self._http is not None:
+            await self._http.wait_closed()
+            self._http = None
         await self.server.stop()
 
     async def serve_forever(self) -> None:

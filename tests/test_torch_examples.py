@@ -21,15 +21,23 @@ EXPECT = {
     "streaming_quickstart": "released stale versions",
     "http_quickstart": "wire result is bit-identical",
     "async_stream": "streamed permutation test: p =",
+    "train_lm": "[train_lm] loss",
 }
+#: Arguments beside ``--device cpu``: train_lm's full-width xlstm-125m takes
+#: a few seconds a step on one CPU thread, so it trains 6 short steps on a
+#: 256-token vocabulary (its loss falls, or it exits non-zero), checkpoints
+#: under a temporary directory.
+ARGS = {"train_lm": ["--steps", "6", "--seq-len", "16", "--batch", "2", "--vocab", "256"]}
 
 
 @pytest.fixture(scope="module")
-def runs():
+def runs(tmp_path_factory):
     env = {**os.environ, "PYTHONPATH": str(REPO / "src") + os.pathsep
            + os.environ.get("PYTHONPATH", ""), "OMP_NUM_THREADS": "1"}
+    args = {**ARGS, "train_lm": ARGS["train_lm"] + [
+        "--checkpoint-dir", str(tmp_path_factory.mktemp("train_lm"))]}
     procs = {name: subprocess.Popen([sys.executable, str(EXAMPLES / f"{name}.py"),
-                                     "--device", "cpu"], cwd=REPO, env=env,
+                                     "--device", "cpu", *args.get(name, [])], cwd=REPO, env=env,
                                     stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
              for name in EXPECT}
     out = {}

@@ -13,6 +13,7 @@ takes the card and refuses to start without one.
 import os
 import re
 import signal
+import socket
 import subprocess
 import sys
 from pathlib import Path
@@ -154,3 +155,35 @@ def test_http_edge_shuts_down_on_sigterm_and_reboots_warm(tmp_path):
             if proc.poll() is None:
                 proc.kill()
                 proc.wait()
+
+
+@pytest.mark.parametrize("idle_open", [False, True], ids=["all_closed", "one_idle_open"])
+def test_http_edge_shuts_down_while_connections_close(idle_open):
+    """SIGTERM right after 200 keep-alive connections close (the server is
+    still handling their EOFs), with or without one idle connection left
+    open: the edge shuts down and exits 0 rather than waiting forever for a
+    connection that is already gone or parked in its read."""
+    env = {**os.environ, "PYTHONPATH": str(REPO / "src") + os.pathsep
+           + os.environ.get("PYTHONPATH", ""), "OMP_NUM_THREADS": "2"}
+    cli = [sys.executable, "-m", "repro_torch.launch.serve_cv", *CPU, "--http", "0",
+           "--datasets", "1", "--n", "32", "--p", "64"]
+    proc, url, lines = _boot(cli, env)
+    socks = []
+    try:
+        host, port = url.removeprefix("http://").rsplit(":", 1)
+        for _ in range(200):
+            s = socket.create_connection((host, int(port)))
+            s.sendall(b"GET /healthz HTTP/1.1\r\nHost: edge\r\n\r\n")
+            socks.append(s)
+        for s in socks:
+            assert s.recv(4096).startswith(b"HTTP/1.1 200")
+        for s in socks[idle_open:]:
+            s.close()
+        rc, text = _stop(proc, lines)
+        assert rc == 0 and "http edge shut down" in text
+    finally:
+        for s in socks:
+            s.close()
+        if proc.poll() is None:
+            proc.kill()
+            proc.wait()
