@@ -151,6 +151,27 @@ then training (phase train):
   within 1e-5 relative); the checkpoint's bytes and its snapshot, write
   and restore seconds;
 
+then the dry run and the step counter (phase dryrun):
+
+* ``python -m repro_torch.launch.dryrun`` as two processes at once (the
+  fake process group is process-global, and this process ran NCCL):
+  gemma2-2b and olmoe-1b-7b at train_4k on the (16, 16) mesh (µ = 1) and
+  gemma2-2b at decode_32k on the (2, 16, 16) mesh, traced on fake CPU
+  tensors under fake groups of 256 / 512 ranks; per cell its per-rank
+  bytes, FLOPs, collective bytes by kind, seconds and the roofline row
+  with the H100 constants (``launch.roofline``). A gemma2 cell that does
+  not trace fails the phase; olmoe's refusal is printed with its reason;
+* ``launch.step_analysis.analyze_step`` on the card over one train step
+  of phase train's shape (gemma2-2b uncut, 2 × 1,024, bf16, remat; flash
+  counted as attention_ref's products): its FLOPs and dot bytes must equal
+  the same step traced on fake CPU tensors in this process, integer for
+  integer, and it must see every flash launch; then two warm steps timed,
+  and the counted FLOPs and 6·N·D over the warm step as shares of 989
+  TFLOP/s, beside the card's name and power limit, with the roofline's
+  compute and memory terms of the step (the memory term with each flash
+  launch at the bytes the kernel moves, and with attention_ref's f32
+  bytes as counted);
+
 and, after the build, ``python -m repro_torch.analysis`` (lint: reprolint
 for the port) as a process, which must exit 0.
 
@@ -339,6 +360,13 @@ TRAIN_STEPS, TRAIN_BATCH, TRAIN_SEQ, TRAIN_LR = 4, 2, 1024, 3e-4
 TRAIN_RESTART_AT, TRAIN_RESTART_BATCH, TRAIN_RESTART_SEQ, TRAIN_RESTART_VOCAB = 3, 8, 128, 2048
 # a random model's first loss lies within this of ln V (its logits are ~0)
 TRAIN_LOSS0_BAND = 1.0
+# Dry run (phase dryrun): the CLI's cells, each process cut at this many
+# seconds; the counter's step is phase train's, then DRYRUN_WARM timed steps
+DRYRUN_CELLS = [["--arch", "gemma2-2b,olmoe-1b-7b", "--shape", "train_4k", "--mesh", "single",
+                 "--microbatches", "1"],
+                ["--arch", "gemma2-2b", "--shape", "decode_32k", "--mesh", "multi"]]
+DRYRUN_TIMEOUT = 600
+DRYRUN_WARM = 2
 # the restarted xLSTM's losses against the uninterrupted run's: the embedding
 # backward's atomics on the card reorder its sums
 TOL_RESTART = 1e-5
@@ -2966,6 +2994,130 @@ def train_phase(dev) -> dict:
     return launches
 
 
+def dryrun_phase(dev) -> dict:
+    """(a) The dry run's cells in two processes at once, each with its
+    roofline row; (b) the step counter on the card against a fake CPU
+    trace of the same step, and the step's share of bf16 peak."""
+    import shutil
+
+    from torch._subclasses.fake_tensor import FakeTensorMode
+
+    from repro_torch.configs.base import get_config
+    from repro_torch.data.tokens import TokenStream, TokenStreamConfig
+    from repro_torch.launch import roofline
+    from repro_torch.launch.step_analysis import analyze_step
+    from repro_torch.models import model as M
+    from repro_torch.optim import optimizer as O
+    from repro_torch.train import steps
+
+    root = Path(__file__).resolve().parent
+    out_dir = Path(tempfile.mkdtemp(prefix=".chip_smoke_dryrun-", dir=root))
+    env = {**os.environ, "PYTHONPATH": str(root / "src")}
+    t0 = time.perf_counter()
+    procs = [subprocess.Popen([sys.executable, "-m", "repro_torch.launch.dryrun", *args,
+                               "--out", str(out_dir)], cwd=root, env=env,
+                              stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+             for args in DRYRUN_CELLS]
+    logs = []
+    try:
+        for proc in procs:
+            logs.append(proc.communicate(timeout=DRYRUN_TIMEOUT)[0])
+        records = [json.loads(f.read_text()) for f in sorted(out_dir.glob("*.json"))]
+    finally:
+        for proc in procs:
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+        shutil.rmtree(out_dir, ignore_errors=True)
+    cells = []
+    for rec in records:
+        cell = {k: rec.get(k) for k in ("arch", "shape", "mesh", "num_chips", "ok", "profile",
+                                        "microbatches", "build_s", "trace_s", "error")}
+        if rec.get("ok"):
+            cell.update(memory=rec["memory"], flops=rec["loop_aware"]["flops"],
+                        dot_hbm_bytes=rec["loop_aware"]["dot_hbm_bytes"],
+                        collective_bytes=rec["loop_aware"]["collective_bytes"],
+                        collective_counts=rec["loop_aware"]["collective_counts"],
+                        roofline=roofline.roofline_row(rec))
+        cells.append(cell)
+    sweep_s = time.perf_counter() - t0
+
+    # (b) one train step of phase train's shape, counted on the card and on
+    # fake CPU tensors
+    cfg = get_config(TRAIN_ARCH)
+    opt = O.AdamWConfig(lr_peak=TRAIN_LR, warmup_steps=1, total_steps=TRAIN_STEPS)
+    scfg = TokenStreamConfig(vocab_size=cfg.vocab_size, seq_len=TRAIN_SEQ,
+                             global_batch=TRAIN_BATCH, seed=SEED)
+    with FakeTensorMode():
+        fmodel = M.Model(cfg, "cpu").requires_grad_(True)
+        fstate = O.init_opt_state(steps.trainable(fmodel), opt)
+        ftok = torch.zeros((TRAIN_BATCH, TRAIN_SEQ), dtype=torch.int32)
+        fake, fake_s = timed(lambda: analyze_step(steps.make_train_step(cfg, opt), fmodel, fstate,
+                                                  {"tokens": ftok, "labels": ftok}))
+    del fmodel, fstate
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(SEED)
+    model, state = steps.init_train_state(cfg, opt, generator=gen, device=dev)
+    step = steps.make_train_step(cfg, opt)
+    stream = TokenStream(scfg, device=dev)
+    reset_counts()
+    card, card_s = timed(lambda: analyze_step(step, model, state, stream.next_batch()))
+    launches = counts()
+    warm = []
+    for _ in range(DRYRUN_WARM):
+        batch = stream.next_batch()
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        float(step(model, state, batch)["loss"])
+        torch.cuda.synchronize()
+        warm.append(time.perf_counter() - t)
+    del model, state, batch
+    torch.cuda.empty_cache()
+    warm_s = statistics.median(warm)
+    n = roofline.param_count(cfg)
+    six_nd = 6 * n * TRAIN_BATCH * TRAIN_SEQ
+    opt_bytes = (3 * 2 * 4 + 4 + 2) * n
+    keys = ("flops", "dot_hbm_bytes", "collective_total_bytes")
+    # the roofline's memory term takes each flash launch at the bytes the
+    # kernel moves (bf16 q, k, v, out once each), not attention_ref's f32
+    # operands and S x S products, which the count keeps for its equality
+    flash = card["flash"]
+    kernel_bytes = card["dot_hbm_bytes"] - flash["ref_bytes"] + flash["kernel_bytes"]
+    t_compute = card["flops"] / roofline.PEAK_FLOPS
+    t_memory = (kernel_bytes + opt_bytes) / roofline.HBM_BW
+    counter = {"card": {k: card[k] for k in keys}, "fake_cpu": {k: fake[k] for k in keys},
+               "card_s": card_s, "fake_cpu_s": fake_s, "flash_launches": launches,
+               "counter_flash": flash, "warm_step_s": warm, "params_meta": n, "six_nd": six_nd,
+               "counted_share_of_bf16_peak": card["flops"] / warm_s / roofline.PEAK_FLOPS,
+               "six_nd_share_of_bf16_peak": six_nd / warm_s / roofline.PEAK_FLOPS,
+               "roofline": {"t_compute_s": t_compute, "t_memory_s": t_memory,
+                            "t_memory_attention_ref_bytes_s":
+                                (card["dot_hbm_bytes"] + opt_bytes) / roofline.HBM_BW,
+                            "dot_bytes_flash_as_kernel": kernel_bytes,
+                            "opt_traffic_bytes": opt_bytes,
+                            "warm_step_over_bound": warm_s / max(t_compute, t_memory)},
+               "batch": TRAIN_BATCH, "seq": TRAIN_SEQ, "peak_flops": roofline.PEAK_FLOPS}
+    emit({"phase": "dryrun", "card": nvidia_smi(), "sweep_s": sweep_s, "cells": cells,
+          "counter": counter})
+
+    by = {(c["arch"], c["shape"], c["mesh"]): c for c in cells}
+    for key in (("gemma2-2b", "train_4k", "16x16"), ("gemma2-2b", "decode_32k", "2x16x16")):
+        if key not in by or not by[key]["ok"]:
+            fail(f"dryrun: {key} did not trace: {by.get(key, {}).get('error')}\n"
+                 f"{''.join(logs)[-3000:]}")
+    if ("olmoe-1b-7b", "train_4k", "16x16") not in by:
+        fail("dryrun: the olmoe-1b-7b cell wrote no record")
+    if counter["card"] != counter["fake_cpu"]:
+        fail(f"dryrun: the card's count {counter['card']} is not the fake CPU trace's "
+             f"{counter['fake_cpu']}")
+    expect_exact("dryrun counted step", {**launches, "calls": {}},
+                 {"flash_attention": 2 * cfg.num_layers})
+    if flash["launches"] != launches.get("flash_attention"):
+        fail(f"dryrun: the counter saw {flash['launches']} flash launches, the kernel's "
+             f"count is {launches.get('flash_attention')}")
+    return launches
+
+
 def lint_phase() -> None:
     """``python -m repro_torch.analysis`` (reprolint for the port) over the
     port's tree, as a process on this machine's Python."""
@@ -3436,6 +3588,9 @@ def main() -> None:
     torch.cuda.empty_cache()
     # training: gemma2-2b uncut through the Trainer, and a restart
     launches_train = train_phase(dev)
+    torch.cuda.empty_cache()
+    # the dry run's cells, and the step counter on the card
+    dryrun_phase(dev)
     torch.cuda.empty_cache()
 
     # -- 3. every kernel against its plain version on the card -----------------

@@ -17,6 +17,7 @@ import argparse
 from repro_torch.configs.base import apply_overrides, get_config, list_archs
 from repro_torch.data.tokens import TokenStream, TokenStreamConfig
 from repro_torch.kernels.common import resolve_device
+from repro_torch.launch import sharding as sh
 from repro_torch.optim import optimizer as O
 from repro_torch.train.trainer import Trainer, TrainerConfig
 
@@ -35,8 +36,9 @@ def main(argv=None):
     ap.add_argument("--checkpoint-every", type=int, default=100)
     ap.add_argument("--compress-grads", action="store_true")
     ap.add_argument("--profile", default="tp", choices=["tp", "dp"],
-                    help="the sharding profile of a multi-device mesh; at world size 1 "
-                    "(the only one this launcher runs) it changes nothing")
+                    help="the sharding profile (launch.sharding.rules_for) whose rules the "
+                    "Trainer holds and writes into its checkpoints; at world size 1 (the "
+                    "only one this launcher runs) they lay out no tensor")
     ap.add_argument("--set", action="append", default=[], dest="overrides",
                     help="config override field=value")
     ap.add_argument("--device", default=None, help="default: cuda")
@@ -67,8 +69,9 @@ def main(argv=None):
                          log_every=max(args.steps // 20, 1))
 
     print(f"[train] arch={cfg.name} params≈{cfg.param_count():,} "
-          f"devices=1 device={dev}")
-    trainer = Trainer(cfg, opt_cfg, tcfg, TokenStream(scfg, device=dev))
+          f"devices=1 device={dev} profile={args.profile}")
+    trainer = Trainer(cfg, opt_cfg, tcfg, TokenStream(scfg, device=dev),
+                      rules=sh.rules_for(args.profile))
     summary = trainer.run()
     print(f"[train] done: final_loss={summary['final_loss']:.4f} "
           f"wall={summary['wall_s']:.1f}s skipped={summary['skipped']} "

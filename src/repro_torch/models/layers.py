@@ -7,8 +7,10 @@ reference's do. Attention weights are stored 3-D — wq (D, H, Dh),
 wo (H, Dh, D) — as in the reference, and multiplied as 2-D views.
 
 Compute dtype is bf16 with f32 norms/softmax/logits at the full configs;
-the smoke configs run everything in f32. The reference's sharding hints
-(``constrain``) have no counterpart here.
+the smoke configs run everything in f32. Of the reference's sharding
+hints (``constrain``) the port keeps those a DTensor trace needs to
+resolve a layout (``launch.dryrun``): each is a no-op outside
+``launch.sharding.axis_ctx``.
 
 On a CUDA tensor the self-attention of :func:`attention_full` is the
 hand-written flash_attention kernel; on a CPU tensor its plain version.
@@ -29,6 +31,7 @@ from torch import nn
 from repro_torch.configs.base import ArchConfig
 from repro_torch.kernels.flash_attention.ops import flash_attention
 from repro_torch.kernels.flash_attention.ref import NEG_INF
+from repro_torch.launch.sharding import constrain, mesh_active
 
 
 def _dt(cfg: ArchConfig) -> torch.dtype:
@@ -215,18 +218,46 @@ def attention_full(p: Attention, x: torch.Tensor, cfg: ArchConfig, *, positions:
 
     The Hkv heads go to the kernel as they are (query head h reads KV head
     h // group): the reference repeats K/V to Hq heads for its tensor-
-    parallel sharding, which computes the same function. q, k and v go in
+    parallel sharding, which computes the same function, and the port does
+    so only under a mesh (:func:`_on_own_heads`). q, k and v go in
     as (B, H, S, Dh) views of the projections, and the output comes back
     in (B, S, H, Dh) memory, so neither side is copied on the card.
     """
     q, k, v = _project_qkv(p, x, cfg, positions, kv_src)
-    if kv_src is not None:
-        out = cross_attention(q, k, v, scale=_query_scale(cfg), softcap=cfg.attn_logit_softcap)
-        return _out_proj(out, p), (k, v)
-    out = flash_attention(q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2),
-                          scale=_query_scale(cfg), causal=causal, window=window,
-                          softcap=cfg.attn_logit_softcap)
-    return _out_proj(out.transpose(1, 2), p), (k, v)
+    scale = _query_scale(cfg)
+
+    def attend(q, k, v):                       # (B, S, H, Dh) in and out
+        if kv_src is not None:
+            return cross_attention(q, k, v, scale=scale, softcap=cfg.attn_logit_softcap)
+        return flash_attention(q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2),
+                               scale=scale, causal=causal, window=window,
+                               softcap=cfg.attn_logit_softcap).transpose(1, 2)
+
+    out = _on_own_heads(attend, q, k, v) if mesh_active(q) else attend(q, k, v)
+    return constrain(_out_proj(out, p), ("batch", "seq", "embed")), (k, v)
+
+
+def _on_own_heads(attend, q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
+    """Under a mesh, the reference's layout of full attention: k and v
+    (B, S, Hkv, Dh) repeated to the Hq query heads (head h reads KV head
+    h // group, the same function), q, k and v split on "batch" and
+    "heads" (where the heads divide the axis), and each rank attending
+    over its own shards, as tensor-parallel attention does (DTensor has no
+    strategy for the plain version's products over a batch split on two
+    mesh axes). The sequence stays whole, so a query sees every key even
+    under sequence parallelism. Returns ``attend``'s output in q's layout."""
+    from torch.distributed.tensor import DTensor
+
+    b, s, hkv, dh = k.shape
+    group = q.shape[2] // hkv
+
+    def repeat(t):
+        return t[:, :, :, None].expand(b, s, hkv, group, dh).reshape(b, s, hkv * group, dh)
+
+    spec = ("batch", None, "heads", None)
+    q, k, v = (constrain(t, spec) for t in (q, repeat(k), repeat(v)))
+    out = attend(q.to_local(), k.to_local(), v.to_local())
+    return DTensor.from_local(out, q.device_mesh, q.placements, run_check=False)
 
 
 def quantize_kv(t: torch.Tensor):
@@ -274,7 +305,7 @@ def attention_decode(p: Attention, x: torch.Tensor, cfg: ArchConfig, *, cache: d
         k_eff, v_eff = cache["k"], cache["v"]
 
     hq, hkv, dh = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
-    qg = q.reshape(b, 1, hkv, hq // hkv, dh)
+    qg = _decode_query(q).reshape(b, 1, hkv, hq // hkv, dh)
     logits = torch.einsum("bqhgk,bchk->bhgqc", qg.float(), k_eff.float()) * _query_scale(cfg)
     if cfg.attn_logit_softcap is not None:
         c = cfg.attn_logit_softcap
@@ -301,7 +332,17 @@ def cross_attention_decode(p: Attention, x: torch.Tensor, cfg: ArchConfig, *,
     q = _project(x, p.wq)
     if cfg.qk_norm:
         q = rms_head_norm(p.q_norm, q, cfg.norm_eps)
-    return _out_proj(cross_attention(q, cross_k, cross_v, scale=_query_scale(cfg)), p)
+    return _out_proj(cross_attention(_decode_query(q), cross_k, cross_v,
+                                     scale=_query_scale(cfg)), p)
+
+
+def _decode_query(q: torch.Tensor) -> torch.Tensor:
+    """Under a mesh a decode query (B, 1, Hq, Dh) keeps every head whole on
+    each rank: the grouped read by KV head cannot split a group over ranks,
+    and the cache's own layout splits the work (the dry run puts "model" on
+    a cache's largest dim, the slots of a self-attention cache, so a rank
+    attends with every head over its own slots)."""
+    return constrain(q, ("batch", "seq", "kv_heads", None))
 
 
 # ------------------------------------------------------------------- mlps --
@@ -321,11 +362,11 @@ class MLP(nn.Module):
 
 
 def apply_mlp(p: MLP, x: torch.Tensor, cfg: ArchConfig) -> torch.Tensor:
-    up = x @ p.w_up.to(x.dtype)
+    up = constrain(x @ p.w_up.to(x.dtype), ("batch", "seq", "ffn"))
     if cfg.mlp == "swiglu":
         h = F.silu(x @ p.w_gate.to(x.dtype)) * up
     elif cfg.mlp == "geglu":
         h = F.gelu(x @ p.w_gate.to(x.dtype), approximate="tanh") * up
     else:
         h = F.gelu(up, approximate="tanh")
-    return h @ p.w_down.to(x.dtype)
+    return constrain(h @ p.w_down.to(x.dtype), ("batch", "seq", "embed"))

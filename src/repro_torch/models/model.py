@@ -24,10 +24,12 @@ from __future__ import annotations
 from typing import Optional
 
 import torch
+import torch.nn.functional as F
 from torch import nn
 
 from repro_torch.configs.base import ArchConfig
 from repro_torch.kernels.common import resolve_device
+from repro_torch.launch.sharding import constrain, embedding_table
 from repro_torch.models import layers as L
 from repro_torch.models import transformer as T
 
@@ -84,23 +86,27 @@ def _embed(params: Model, tokens: torch.Tensor, cfg: ArchConfig,
            positions: torch.Tensor) -> torch.Tensor:
     """tokens (B, S), or (B, K, S) with codebooks (their embeddings summed in
     the param dtype, in codebook order) -> (B, S, D) in the compute dtype;
-    sinusoidal position embeddings added after ``emb_scale``."""
+    sinusoidal position embeddings added after ``emb_scale``. The rows are
+    looked up by ``F.embedding``, which DTensor shards over the vocabulary
+    (an indexing of the table it does not, on every torch the port runs)."""
     dt = L._dt(cfg)
     if cfg.num_codebooks:
-        h = sum(params.embed[f"codebook_{i}"][tokens[:, i]]
+        h = sum(F.embedding(tokens[:, i], embedding_table(params.embed[f"codebook_{i}"]))
                 for i in range(cfg.num_codebooks)).to(dt)
     else:
-        h = params.embed["tokens"][tokens].to(dt)
+        h = F.embedding(tokens, embedding_table(params.embed["tokens"])).to(dt)
+    h = constrain(h, ("batch_unembed", "seq", "embed"))
     if cfg.emb_scale is not None:
         h = h * torch.tensor(cfg.emb_scale, dtype=dt, device=h.device)
     if cfg.pos_embedding == "sinusoidal":
         h = h + L.sinusoidal(positions, cfg.d_model).to(dt)
-    return h
+    return constrain(h, ("batch", "seq", "embed"))
 
 
 def _unembed(params: Model, h: torch.Tensor, cfg: ArchConfig) -> torch.Tensor:
     """h: (B, S, D) -> logits f32 (B, S, V), or (B, S, K, V) with codebooks."""
-    hf = L.apply_norm(params.final_norm, h, cfg).float()
+    hf = constrain(L.apply_norm(params.final_norm, h, cfg).float(),
+                   ("batch_unembed", "seq", "embed"))
     if cfg.num_codebooks:
         logits = torch.stack([hf @ w.float() for w in params.heads()], dim=2)
     elif cfg.tie_embeddings:
@@ -111,7 +117,7 @@ def _unembed(params: Model, h: torch.Tensor, cfg: ArchConfig) -> torch.Tensor:
         logits = L.scale_(logits, cfg.logit_scale)
     if cfg.final_logit_softcap is not None:
         logits = L.softcap_(logits, cfg.final_logit_softcap)
-    return logits
+    return logits if cfg.num_codebooks else constrain(logits, ("batch", "seq", "vocab"))
 
 
 def _positions(s: int, device) -> torch.Tensor:
@@ -142,10 +148,13 @@ def forward(params: Model, tokens: torch.Tensor, cfg: ArchConfig, *,
 
 
 def cross_entropy(logits: torch.Tensor, labels: torch.Tensor) -> torch.Tensor:
-    """CE per position. logits f32 (..., V); labels int (...,)."""
+    """CE per position. logits f32 (..., V); labels int (...,). The label's
+    logit is gathered from the (positions, V) view: DTensor gathers from a
+    vocab-sharded 2-D view, not from the 3-D one."""
     m = logits.amax(dim=-1, keepdim=True)
     lse = m[..., 0] + torch.log(torch.exp(logits - m).sum(dim=-1))
-    return lse - logits.gather(-1, labels[..., None].long())[..., 0]
+    picked = logits.reshape(-1, logits.shape[-1]).gather(1, labels.reshape(-1, 1).long())
+    return lse - picked.reshape(labels.shape)
 
 
 def loss_fn(params: Model, batch: dict, cfg: ArchConfig):

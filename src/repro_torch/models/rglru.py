@@ -27,6 +27,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from repro_torch.configs.base import ArchConfig
+from repro_torch.launch.sharding import constrain
 from repro_torch.models.layers import _pdt, dense_init_, param
 
 _C = 8.0
@@ -79,8 +80,12 @@ def _causal_conv(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor,
 def _block_linear(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     """Block-diagonal linear in f32: x (..., R) with blocks w (NB, RB, RB)."""
     nb, rb, _ = w.shape
-    xs = x.float().reshape(*x.shape[:-1], nb, rb)
-    y = torch.einsum("...nr,nrq->...nq", xs, w).reshape(x.shape)
+    # under a mesh the R dim is gathered on the way in and kept whole on the
+    # way out (so the gradient reaches the reshapes whole): its NB blocks
+    # need not split over the ranks evenly
+    axes = ("batch",) + ("seq",) * (x.ndim - 2) + (None,)
+    xs = constrain(x.float(), axes).reshape(*x.shape[:-1], nb, rb)
+    y = constrain(torch.einsum("...nr,nrq->...nq", xs, w).reshape(x.shape), axes)
     return y + b
 
 
@@ -125,7 +130,7 @@ def apply_recurrent_block(p: RGLRU, x: torch.Tensor, cfg: ArchConfig,
 
     state: None (forward / prefill) or {"h": (B, R) f32, "conv": (B, W−1, R)},
     which one decode step updates IN PLACE. Returns (out, state)."""
-    branch = x @ p.w_x.to(x.dtype)                                     # (B, S, R)
+    branch = constrain(x @ p.w_x.to(x.dtype), ("batch", "seq", "rnn"))  # (B, S, R)
     gate = F.gelu(x @ p.w_gate.to(x.dtype), approximate="tanh")
     conv_w = p.conv_w.to(x.dtype)
     if state is None:
@@ -133,7 +138,7 @@ def apply_recurrent_block(p: RGLRU, x: torch.Tensor, cfg: ArchConfig,
     else:
         conv_out, state["conv"] = _causal_conv(branch, conv_w, p.conv_b, state["conv"])
         h, state["h"] = rglru_step(p, conv_out, state["h"])
-    return (h * gate) @ p.w_out.to(x.dtype), state
+    return constrain((h * gate) @ p.w_out.to(x.dtype), ("batch", "seq", "embed")), state
 
 
 def init_recurrent_state(cfg: ArchConfig, batch: int, device) -> dict:

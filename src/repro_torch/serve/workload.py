@@ -1555,7 +1555,11 @@ class TrafficLog:
         return len(self._entries)
 
     def entries(self) -> list[dict]:
-        return sorted((dict(e) for e in self._entries), key=lambda d: (d["task"], d["bucket"]))
+        """The entries by (task, bucket), ties broken by the whole entry's
+        JSON: an order set by the content alone, so ``save`` → ``load`` →
+        ``save`` gives the same bytes whatever the process's hash seed."""
+        return sorted((dict(e) for e in self._entries),
+                      key=lambda d: (d["task"], d["bucket"], json.dumps(d, sort_keys=True)))
 
     def _add(self, **fields) -> None:
         self._entries.add(tuple(sorted(fields.items())))

@@ -49,9 +49,28 @@ def _grads(loss: torch.Tensor, named: dict) -> list:
     return [torch.zeros_like(p) if g is None else g for g, p in zip(grads, named.values())]
 
 
+def _like(g: torch.Tensor, state: torch.Tensor) -> torch.Tensor:
+    """A DTensor gradient laid out as its optimizer state (ZeRO-1: reduced
+    and scattered over the data axes); a plain tensor as it is."""
+    if hasattr(g, "placements") and hasattr(state, "placements"):
+        return g.redistribute(state.device_mesh, state.placements)
+    return g
+
+
 def _microbatch(batch: dict, microbatches: int, i: int) -> dict:
-    """Rows [i·b/µ, (i+1)·b/µ) of every tensor of ``batch``."""
+    """Rows [i·b/µ, (i+1)·b/µ) of every tensor of ``batch``. A DTensor is
+    split per rank, as data-parallel µ-batching splits it: µ-batch i holds
+    rows [i·b_r/µ, (i+1)·b_r/µ) of each rank's b_r rows, laid out as the
+    batch was. The µ-batches hold other rows than the plain split's, and
+    the mean over them is the batch's mean all the same."""
     def part(x):
+        if hasattr(x, "placements"):
+            from torch.distributed.tensor import DTensor
+
+            local = x.to_local()
+            b = local.shape[0] // microbatches
+            return DTensor.from_local(local[i * b:(i + 1) * b], x.device_mesh, x.placements,
+                                      run_check=False)
         b = x.shape[0] // microbatches
         return x[i * b:(i + 1) * b]
 
@@ -68,7 +87,7 @@ def loss_and_grads(params: M.Model, batch: dict, cfg: ArchConfig, microbatches: 
             loss, metrics = M.loss_fn(params, batch, cfg)
             grads = dict(zip(named, _grads(loss, named)))
             return (loss.detach(), {k: v.detach() for k, v in metrics.items()}, grads)
-        acc = {n: torch.zeros(p.shape, dtype=accum_dtype, device=p.device)
+        acc = {n: torch.zeros_like(p, dtype=accum_dtype, memory_format=torch.contiguous_format)
                for n, p in named.items()}
         loss_sum = aux_sum = 0.0
         for i in range(microbatches):
@@ -100,6 +119,7 @@ def make_train_step(cfg: ArchConfig, opt_cfg: O.AdamWConfig, microbatches: int =
     def train_step(params: M.Model, opt_state: O.OptState, batch: dict, *,
                    skip_nonfinite: bool = False) -> dict:
         loss, metrics, grads = loss_and_grads(params, batch, cfg, microbatches, accum_dtype)
+        grads = {n: _like(g, opt_state.master[n]) for n, g in grads.items()}
         if skip_nonfinite and not math.isfinite(float(loss)):
             return dict(metrics, loss=loss, skipped=True)
         stats = O.apply_updates(trainable(params), grads, opt_state, opt_cfg,

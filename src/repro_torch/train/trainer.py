@@ -14,11 +14,13 @@ from __future__ import annotations
 
 import dataclasses
 import time
+from typing import Optional
 
 import torch
 
 from repro_torch.configs.base import ArchConfig
 from repro_torch.data.tokens import TokenStream
+from repro_torch.launch import sharding as sh
 from repro_torch.optim import optimizer as O
 from repro_torch.train import checkpoint as ckpt
 from repro_torch.train import steps as steps_lib
@@ -40,13 +42,19 @@ class TrainerConfig:
 
 class Trainer:
     """``seed`` seeds the generator (on the stream's device) that draws the
-    initial weights."""
+    initial weights. ``rules`` are the sharding rules of the run
+    (``launch.sharding.rules_for``; default the ``tp`` profile's): the
+    trainer holds them as ``rules`` and writes them into every checkpoint's
+    metadata. A run of one process lays out nothing, so they move no
+    number."""
 
     def __init__(self, cfg: ArchConfig, opt_cfg: O.AdamWConfig,
-                 tcfg: TrainerConfig, stream: TokenStream, seed: int = 0):
+                 tcfg: TrainerConfig, stream: TokenStream, seed: int = 0,
+                 rules: Optional[sh.Rules] = None):
         self.cfg = cfg
         self.opt_cfg = opt_cfg
         self.tcfg = tcfg
+        self.rules = sh.DEFAULT_RULES if rules is None else rules
         self.stream = stream
         self.device = stream.device
         self.monitor = StepTimeMonitor(threshold=tcfg.straggler_threshold)
@@ -90,7 +98,7 @@ class Trainer:
         ckpt.save_async(
             self.tcfg.checkpoint_dir, step, self._state(),
             metadata={"data": self.stream.checkpoint_state(),
-                      "arch": self.cfg.name},
+                      "arch": self.cfg.name, "sharding": self.rules.as_dict()},
             keep=self.tcfg.keep_checkpoints)
 
     # --------------------------------------------------------------- loop --

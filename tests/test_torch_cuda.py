@@ -6,6 +6,7 @@ On a machine with one: ``PYTHONPATH=src python -m pytest -q -m cuda
 with nvcc; ``--noconftest`` skips the root conftest, which configures jax).
 """
 
+import contextlib
 import dataclasses
 
 import numpy as np
@@ -930,8 +931,6 @@ def test_flash_attention_gradient_on_the_card(gen, dtype, d):
     a window of 48 < S, softcap 50): the forward is one kernel launch, the
     backward launches nothing and its dq, dk, dv equal autograd's through
     attention_ref on the same q, k, v bit for bit (it is that recompute)."""
-    from repro_torch.kernels.flash_attention.ops import FlashAttentionFn
-
     s = 200
     q0 = torch.randn(2, 8, s, d, generator=gen, device="cuda").to(dtype)
     k0, v0 = (torch.randn(2, 2, s, d, generator=gen, device="cuda").to(dtype) for _ in "kv")
@@ -939,7 +938,7 @@ def test_flash_attention_gradient_on_the_card(gen, dtype, d):
     kw = dict(scale=d ** -0.5, causal=True, window=48, softcap=50.0)
     q, k, v = (t.clone().requires_grad_() for t in (q0, k0, v0))
     out = _launched("flash_attention", lambda: flash_attention(q, k, v, **kw))
-    assert isinstance(out.grad_fn, FlashAttentionFn._backward_cls)
+    assert "repro_torch_flash_attention" in out.grad_fn.name()      # the flash operator
     before = _build.LAUNCHES["flash_attention"]
     got = torch.autograd.grad(out, (q, k, v), dout)
     torch.cuda.synchronize()
@@ -983,3 +982,38 @@ def test_gemma2_train_step_on_the_card(gen):
     for key in ("loss", "grad_norm"):
         assert abs(float(m1[key]) - float(c1[key])) <= 1e-4 * abs(float(c1[key]))
     assert np.isfinite(float(m2["loss"])) and float(m2["loss"]) < 1.5 * float(m1["loss"])
+
+
+def test_step_counter_on_the_card_equals_the_fake_cpu_trace(gen):
+    """One train step of the gemma2-shaped smoke model (head_dim 64, remat)
+    counted by launch.step_analysis on the card, where each flash launch
+    counts as attention_ref's products, and on fake CPU tensors, where
+    attention runs attention_ref: the same FLOPs and dot bytes, integer for
+    integer."""
+    from torch._subclasses.fake_tensor import FakeTensorMode
+
+    from repro_torch.launch.step_analysis import analyze_step
+    from repro_torch.models import model as M
+    from repro_torch.optim import optimizer as O
+    from repro_torch.train import steps
+
+    cfg = dataclasses.replace(get_config("gemma2-2b", smoke=True), head_dim=64,
+                              query_scale=64 ** -0.5)
+    opt = O.AdamWConfig(lr_peak=1e-3, warmup_steps=1, total_steps=10)
+    counts = {}
+    for dev in ("fake", "cuda"):
+        with FakeTensorMode() if dev == "fake" else contextlib.nullcontext():
+            d = "cpu" if dev == "fake" else dev
+            params = M.Model(cfg, d).requires_grad_(True)
+            if dev == "cuda":
+                params = M.init_params(cfg, generator=torch.Generator(device=d).manual_seed(0),
+                                       device=d).requires_grad_(True)
+            state = O.init_opt_state(steps.trainable(params), opt)
+            tok = torch.zeros((2, 40), dtype=torch.int32, device=d)
+            before = _build.LAUNCHES["flash_attention"]
+            res = analyze_step(steps.make_train_step(cfg, opt), params, state,
+                               {"tokens": tok, "labels": tok})
+            counts[dev] = (res["flops"], res["dot_hbm_bytes"])
+    torch.cuda.synchronize()
+    assert _build.LAUNCHES["flash_attention"] - before == 2 * cfg.num_layers
+    assert counts["cuda"] == counts["fake"] and counts["cuda"][0] > 0

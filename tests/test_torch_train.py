@@ -19,7 +19,7 @@ Tolerances:
   weight by about ±lr at step 1, so a gradient whose sign sits in rounding
   noise moves its weight the other way (measured on a CPU: losses 8e-8
   apart, grad norms 3e-7).
-* µ = 2 against µ = 1 and the Function against autograd: 1e-6 of the max
+* µ = 2 against µ = 1 and the flash operator against autograd: 1e-6 of the max
   (f32 rounding of the halves' means; equal sums in another order).
 """
 
@@ -232,7 +232,7 @@ def test_flash_function_gradients_equal_autograd_through_attention_ref(monkeypat
     kw = dict(scale=0.25, causal=True, window=window, softcap=softcap)
 
     q, k, v = (t.clone().requires_grad_() for t in (q0, k0, v0))
-    out = ops.FlashAttentionFn.apply(q, k, v, *kw.values())
+    out = ops.flash_attention_op(q, k, v, *kw.values())
     assert out.grad_fn is not None
     got = torch.autograd.grad(out, (q, k, v), dout)
     qr, kr, vr = (t.clone().requires_grad_() for t in (q0, k0, v0))
@@ -243,7 +243,7 @@ def test_flash_function_gradients_equal_autograd_through_attention_ref(monkeypat
         assert torch.equal(g, w)
     # under no_grad: the same single launch, no graph
     with torch.no_grad():
-        assert ops.FlashAttentionFn.apply(q, k, v, *kw.values()).grad_fn is None
+        assert ops.flash_attention_op(q, k, v, *kw.values()).grad_fn is None
 
 
 def _gemma2_grads(monkeypatch, attention):
@@ -260,7 +260,7 @@ def _gemma2_grads(monkeypatch, attention):
 
 
 def test_bare_kernel_output_drops_attention_gradients(monkeypatch):
-    """The fault the Function repairs: a launch's output has no grad_fn, so
+    """The fault the flash operator repairs: a launch's output has no grad_fn, so
     the projections feeding attention get no gradient at all."""
     _, grads = _gemma2_grads(monkeypatch, _ref_launch)
     for i in range(4):
@@ -270,13 +270,13 @@ def test_bare_kernel_output_drops_attention_gradients(monkeypatch):
 
 
 def test_gemma2_gradients_through_the_function_equal_plain_attention(monkeypatch):
-    """The smoke model's loss gradients with attention through the Function
+    """The smoke model's loss gradients with attention through the flash operator
     (the stand-in launch forward, attention_ref's gradient backward) equal
     those without the kernel (autograd through attention_ref)."""
     loss_plain, plain = _gemma2_grads(monkeypatch, None)
     monkeypatch.setattr(ops, "_kernel", _ref_launch)
     loss_fn, through = _gemma2_grads(
-        monkeypatch, lambda q, k, v, **kw: ops.FlashAttentionFn.apply(q, k, v, *kw.values()))
+        monkeypatch, lambda q, k, v, **kw: ops.flash_attention_op(q, k, v, *kw.values()))
     assert torch.equal(loss_fn, loss_plain)
     for name, g in plain.items():
         assert through[name] is not None, name

@@ -309,7 +309,9 @@ def test_launch_train_runs_and_resumes(tmp_path):
 
 def test_launch_train_flags_as_the_reference(monkeypatch, capsys):
     """MiniCPM trains on WSD by default, as in the reference; ``--help`` says
-    that ``--profile`` changes nothing at world size 1."""
+    that ``--profile``'s rules lay out nothing at world size 1, and the
+    Trainer is handed the profile's rules."""
+    from repro_torch.launch import sharding as sh
     from repro_torch.launch import train
 
     with pytest.raises(SystemExit):
@@ -318,8 +320,8 @@ def test_launch_train_flags_as_the_reference(monkeypatch, capsys):
     seen = {}
 
     class Recorded:
-        def __init__(self, cfg, opt_cfg, tcfg, stream):
-            seen.update(cfg=cfg, opt=opt_cfg, tcfg=tcfg, stream=stream)
+        def __init__(self, cfg, opt_cfg, tcfg, stream, rules):
+            seen.update(cfg=cfg, opt=opt_cfg, tcfg=tcfg, stream=stream, rules=rules)
 
         def run(self):
             return {"final_loss": 1.0, "wall_s": 0.0, "skipped": 0, "straggler_events": 0}
@@ -328,7 +330,36 @@ def test_launch_train_flags_as_the_reference(monkeypatch, capsys):
     train.main(["--arch", "minicpm-2b", "--smoke", "--device", "cpu", "--steps", "40"])
     assert seen["opt"].schedule == "wsd" and seen["opt"].warmup_steps == 5
     assert seen["tcfg"].log_every == 2 and seen["stream"].device.type == "cpu"
+    assert seen["rules"] == sh.rules_for("tp")
+    train.main(["--arch", "minicpm-2b", "--smoke", "--device", "cpu", "--profile", "dp"])
+    assert seen["rules"] == sh.rules_for("dp") and seen["rules"].logical["heads"] is None
     train.main(["--arch", "musicgen-medium", "--smoke", "--device", "cpu", "--schedule", "const",
                 "--compress-grads", "--set", "num_layers=2"])
     assert seen["opt"].schedule == "const" and seen["opt"].compress_grads
     assert seen["cfg"].num_layers == 2 and seen["stream"].cfg.num_codebooks == 2
+
+
+def test_profile_rules_are_recorded_and_move_no_number_at_world_size_1(tmp_path):
+    """``tp`` and ``dp`` train the smoke config to bit-identical losses and
+    parameters in one process; each Trainer holds its profile's rules and
+    writes them into its checkpoint's metadata."""
+    from repro_torch.launch import sharding as sh
+
+    def run(profile):
+        cfg = get_config("gemma2-2b", smoke=True)
+        opt_cfg = O.AdamWConfig(lr_peak=3e-3, warmup_steps=2, total_steps=20)
+        scfg = TokenStreamConfig(vocab_size=cfg.vocab_size, seq_len=16, global_batch=4, seed=1)
+        tcfg = TrainerConfig(total_steps=3, log_every=1, checkpoint_every=3,
+                             checkpoint_dir=str(tmp_path / profile))
+        t = Trainer(cfg, opt_cfg, tcfg, TokenStream(scfg, device="cpu"),
+                    rules=sh.rules_for(profile))
+        return t, t.run()
+
+    (tp, r_tp), (dp, r_dp) = run("tp"), run("dp")
+    assert tp.rules == sh.rules_for("tp") and dp.rules == sh.rules_for("dp")
+    assert [e["loss"] for e in r_tp["log"]] == [e["loss"] for e in r_dp["log"]]
+    for (name, a), (_, b) in zip(_state_tensors(tp), _state_tensors(dp)):
+        assert torch.equal(a, b), name
+    for t, profile in ((tp, "tp"), (dp, "dp")):
+        _, meta = ckpt.restore(tmp_path / profile, 3, t._state(), device="cpu")
+        assert meta["sharding"] == sh.rules_for(profile).as_dict()
