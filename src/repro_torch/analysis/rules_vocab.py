@@ -34,8 +34,12 @@ class StageVocabulary(Rule):
                 continue
             name = None
             f = node.func
-            if isinstance(f, ast.Attribute):
-                if f.attr == "span" and node.args:
+            if isinstance(f, ast.Name):
+                # core.spans.span("..."), called by its bare name in core
+                if f.id == "span" and node.args:
+                    name = _literal_str(node.args[0])
+            elif isinstance(f, ast.Attribute):
+                if f.attr in ("span", "shared") and node.args:
                     name = _literal_str(node.args[0])
                 elif f.attr == "add" and len(node.args) == 2:
                     # Trace.add(stage, seconds) — two positional args keeps

@@ -10,5 +10,6 @@ from repro_torch.core import (  # noqa: F401
     permutation,
     regression,
     shrinkage,
+    spans,
     tuning,
 )

@@ -41,6 +41,7 @@ import numpy as np
 import torch
 
 from repro_torch.core.folds import Folds
+from repro_torch.core.spans import span
 from repro_torch.kernels.common import default_fused, resolve_device
 from repro_torch.kernels.fold_eval.ops import fold_eval
 from repro_torch.kernels.foldsolve.ops import foldsolve
@@ -205,16 +206,19 @@ def prepare(x: torch.Tensor, folds: Folds, lam: float = 0.0, mode: str = "auto",
             "(the primal build has no Gram product to down-cast)")
     if mode == "dual" and gram is None:
         gram = centered_gram(x, precision=precision)
-    h = hat_matrix(x, lam, mode=mode, gram=gram)
+    with span("hat_matrix"):
+        h = hat_matrix(x, lam, mode=mode, gram=gram)
     te, tr = folds.te_idx, folds.tr_idx
-    h_te = _fold_blocks(h, te)
-    eye = torch.eye(h_te.shape[-1], dtype=h.dtype, device=h.device)
-    # A fold whose I − H_Te is not numerically SPD gets a NaN factor, as the
-    # reference's cho_factor gives: the composite route then yields NaN for
-    # that fold, and the kernel route (which never reads chol_ih) is unharmed.
-    chol, info = torch.linalg.cholesky_ex(eye - h_te)
-    chol = torch.where((info != 0)[:, None, None], torch.nan, chol)
-    h_tr_te = h[tr[:, :, None], te[:, None, :]] if with_train_block else None
+    with span("fold_factors"):
+        h_te = _fold_blocks(h, te)
+        eye = torch.eye(h_te.shape[-1], dtype=h.dtype, device=h.device)
+        # A fold whose I − H_Te is not numerically SPD gets a NaN factor, as
+        # the reference's cho_factor gives: the composite route then yields
+        # NaN for that fold, and the kernel route (which never reads
+        # chol_ih) is unharmed.
+        chol, info = torch.linalg.cholesky_ex(eye - h_te)
+        chol = torch.where((info != 0)[:, None, None], torch.nan, chol)
+        h_tr_te = h[tr[:, :, None], te[:, None, :]] if with_train_block else None
     return CVPlan(h, te, tr, chol, h_tr_te)
 
 
@@ -372,7 +376,9 @@ def plan_key(x, folds: Folds, lam: float, mode: str = "auto",
     n, p = x.shape
     if mode == "auto":
         mode = "dual" if p >= n else "primal"
-    return (fingerprint(x), fingerprint(folds.te_idx),
+    with span("fingerprint"):
+        digest = fingerprint(x)
+    return (digest, fingerprint(folds.te_idx),
             fingerprint(folds.tr_idx), float(lam), mode, int(version),
             check_precision(precision), bool(with_train_block))
 

@@ -24,6 +24,7 @@ import torch
 
 from repro_torch.core import fastcv, metrics
 from repro_torch.core.folds import Folds
+from repro_torch.core.spans import span
 
 __all__ = ["cv_grid", "fold_weights", "time_generalization"]
 
@@ -37,10 +38,12 @@ def cv_grid(xs: torch.Tensor, y: torch.Tensor, folds: Folds, lam: float,
     them.
     """
     y = y.to(xs.dtype)
-    return torch.stack([
-        metrics.binary_accuracy(*fastcv.binary_cv(x, y, folds, lam=lam,
-                                                  adjust_bias=adjust_bias))
-        for x in xs])
+    accs = []
+    for x in xs:
+        with span("grid_point"):
+            accs.append(metrics.binary_accuracy(*fastcv.binary_cv(
+                x, y, folds, lam=lam, adjust_bias=adjust_bias)))
+    return torch.stack(accs)
 
 
 def fold_weights(x: torch.Tensor, y: torch.Tensor, folds: Folds, lam: float):

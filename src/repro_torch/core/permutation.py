@@ -23,6 +23,7 @@ import torch
 
 from repro_torch.core import fastcv, lda, metrics, multiclass
 from repro_torch.core.folds import Folds
+from repro_torch.core.spans import span
 from repro_torch.kernels.common import resolve_device
 
 __all__ = [
@@ -58,13 +59,15 @@ def permutation_indices(seed: int, n: int, n_perm: int, *, device=None) -> torch
     ``device=None`` means ``cuda``.
     """
     dev = resolve_device(device)
-    rows = []
-    for t in range(n_perm):
-        state = np.random.SeedSequence([seed, t]).generate_state(1, np.uint64)[0]
-        gen = torch.Generator(device=dev)
-        gen.manual_seed(int(state) & 0x7FFF_FFFF_FFFF_FFFF)
-        rows.append(torch.randperm(n, generator=gen, device=dev))
-    return torch.stack(rows) if rows else torch.empty((0, n), dtype=torch.int64, device=dev)
+    with span("draw"):
+        rows = []
+        for t in range(n_perm):
+            state = np.random.SeedSequence([seed, t]).generate_state(1, np.uint64)[0]
+            gen = torch.Generator(device=dev)
+            gen.manual_seed(int(state) & 0x7FFF_FFFF_FFFF_FFFF)
+            rows.append(torch.randperm(n, generator=gen, device=dev))
+        return torch.stack(rows) if rows else torch.empty((0, n), dtype=torch.int64,
+                                                          device=dev)
 
 
 def _fold_metric_binary(dvals: torch.Tensor, y_te: torch.Tensor, metric: str) -> torch.Tensor:

@@ -244,6 +244,7 @@ class AsyncEngineServer:
                 if leftovers:
                     await self._serve_batch(leftovers)
                 return
+            gathered_from = time.perf_counter()
             batch = [item]
             deadline = self._loop.time() + self.gather_window_s
             while len(batch) < self.max_batch:
@@ -258,18 +259,19 @@ class AsyncEngineServer:
                     self._queue.put_nowait(_STOP)  # re-post; exit after this batch
                     break
                 batch.append(nxt)
-            await self._serve_batch(batch)
+            await self._serve_batch(batch, gathered_from)
 
-    async def _serve_batch(self, batch) -> None:
+    async def _serve_batch(self, batch, gathered_from=None) -> None:
         requests = [req for req, _ in batch]
         futures = [fut for _, fut in batch]
         # One dequeue timestamp for the whole gather window: each member's
-        # submit->here latency becomes its batch_wait stage.
+        # submit->here latency becomes its batch_wait stage, and the window
+        # itself (from its first dequeue) a gather span inside it.
         now = time.perf_counter()
         for req in requests:
             trace = trace_of(req)
             if trace is not None:
-                trace.note_dequeue(now)
+                trace.note_dequeue(now, gathered_from)
         self.engine.metrics.observe("gather_window_occupancy", len(batch))
         try:
             # Per-entry result-or-error: a malformed workload (or an

@@ -189,10 +189,12 @@ class EngineServer:
     # -- worker side -------------------------------------------------------
 
     def _drain_batch(self):
+        """(batch, when its first member was dequeued); ([], None) when idle."""
         try:
             first = self._queue.get(timeout=0.05)
         except queue_mod.Empty:
-            return []
+            return [], None
+        gathered_from = time.perf_counter()
         batch = [first]
         t_end = time.monotonic() + self.max_wait_s
         while len(batch) < self.max_batch:
@@ -203,23 +205,24 @@ class EngineServer:
                 batch.append(self._queue.get(timeout=remaining))
             except queue_mod.Empty:
                 break
-        return batch
+        return batch, gathered_from
 
     def _run(self) -> None:
         bind_engine_device(self.engine)
         while not (self._stop.is_set() and self._queue.empty()):
-            batch = self._drain_batch()
+            batch, gathered_from = self._drain_batch()
             if not batch:
                 continue
             requests = [req for req, _ in batch]
             futures = [fut for _, fut in batch]
             # One dequeue timestamp for the whole batch: every member's
-            # submit->here latency is its batch_wait stage.
+            # submit->here latency is its batch_wait stage, and the gather
+            # window (from the first dequeue) a gather span inside it.
             now = time.perf_counter()
             for req in requests:
                 trace = trace_of(req)
                 if trace is not None:
-                    trace.note_dequeue(now)
+                    trace.note_dequeue(now, gathered_from)
             self.engine.metrics.observe("gather_window_occupancy", len(batch))
             try:
                 # Per-entry result-or-error: one bad workload must not abort

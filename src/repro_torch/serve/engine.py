@@ -495,18 +495,25 @@ class CVEngine:
         :meth:`warmup` (accepts a handle), :meth:`pin`/:meth:`unpin` (via
         ``handle.key``), :meth:`evict`, and the :meth:`datasets`
         introspection view.
+
+        With tracing on, a registration is a trace of its own
+        (``kind="register"``) whose top-level span is ``fingerprint``: it
+        lands in the ring and in ``stage_latency_seconds{stage="fingerprint"}``.
         """
-        x, folds = self._on_device(x), as_folds(folds, self.device)
-        key = fastcv.plan_key(x, folds, lam, mode, True, version=0,
-                              precision=self.config.precision)
-        rec = self._datasets.get(key)
-        if rec is None:
-            handle = DatasetHandle(
-                key=key, n=int(x.shape[0]), p=int(x.shape[1]), lam=float(lam), mode=mode
-            )
-            owned = Folds(folds.te_idx.clone(), folds.tr_idx.clone(), folds.n)
-            rec = self._datasets[key] = _DatasetRecord(handle, x.clone(), owned, float(lam),
-                                                       mode)
+        trace = self.tracer.trace(kind="register")
+        with self.tracer.activate(trace):
+            x, folds = self._on_device(x), as_folds(folds, self.device)
+            key = fastcv.plan_key(x, folds, lam, mode, True, version=0,
+                                  precision=self.config.precision)
+            rec = self._datasets.get(key)
+            if rec is None:
+                handle = DatasetHandle(
+                    key=key, n=int(x.shape[0]), p=int(x.shape[1]), lam=float(lam), mode=mode
+                )
+                owned = Folds(folds.te_idx.clone(), folds.tr_idx.clone(), folds.n)
+                rec = self._datasets[key] = _DatasetRecord(handle, x.clone(), owned,
+                                                           float(lam), mode)
+        self.tracer.finish(trace)
         return rec.handle
 
     def dataset_record(self, handle: DatasetHandle) -> _DatasetRecord:

@@ -15,7 +15,11 @@ A ``contextvars.ContextVar`` carries the *active* trace so engine-internal
 instrumentation (``tracer.span("plan_build")`` deep inside
 ``CVEngine._build_plan``) finds the right trace without threading it
 through every signature — and does so correctly under asyncio, where many
-logical requests interleave on one thread.
+logical requests interleave on one thread. The variable is
+:data:`repro_torch.core.spans.CURRENT`: it lives below ``core`` and
+``serve`` alike, so the analysis functions open spans on the active trace
+too (``span("draw")`` in ``core.permutation``) without importing
+``serve``.
 
 Context vars do **not** cross thread/queue boundaries on their own
 (``loop.run_in_executor`` does not copy context into the engine thread),
@@ -34,17 +38,26 @@ allocation, and no device synchronisation (``Tracer.sync`` is a no-op
 without an active trace), so the card's asynchronous launch queue is
 untouched.
 
-The module is the reference package's ``serve/trace.py`` with one change:
-``Tracer.sync`` waits for the CUDA devices that hold the tensors of a
-value (``torch.cuda.synchronize``) where the reference blocks on jax
-arrays. :data:`STAGES` equals the reference's: reprolint's RL002 checks
-every span literal in ``src/`` against the reference's table.
+Clock: every span is on ``time.perf_counter``; ``Trace.to_dict()`` gives
+the trace's origin on that clock as ``t0_s``, so a span sits at
+``t0_s + start_s`` on the same clock as any other ``perf_counter`` read of
+the process.
+
+The module is the reference package's ``serve/trace.py`` with these
+changes: ``Tracer.sync`` waits for the CUDA devices that hold the tensors
+of a value (``torch.cuda.synchronize``) where the reference blocks on jax
+arrays; the active-trace variable lives in ``core.spans``; the reference's
+ten :data:`STAGES` are followed by the port's own (:data:`PORT_STAGES`),
+host spans under the reference's stages (and ``fingerprint``, the top
+level of a registration's trace) that make no device wait of their own;
+``to_dict`` carries ``t0_s``; a server's gather window is a ``gather``
+child of each member's ``batch_wait``; :meth:`Tracer.shared` times a
+coalesced group's shared work once for all its members. reprolint's RL002
+checks every span literal in ``src/`` against :data:`STAGES`.
 """
 
 from __future__ import annotations
 
-import contextlib
-import contextvars
 import dataclasses
 import threading
 import time
@@ -53,12 +66,17 @@ from typing import Optional
 
 import torch
 
+from repro_torch.core.spans import CURRENT as _CURRENT
+from repro_torch.core.spans import NULL as _NULL_CM
+from repro_torch.core.spans import span as _span
+
 # reprolint: monotonic-time
 # (Span intervals and batch deadlines must survive wall-clock jumps;
 # RL001 flags any time.time() in this module.)
 
 __all__ = [
     "STAGES",
+    "PORT_STAGES",
     "Span",
     "Trace",
     "Tracer",
@@ -69,7 +87,8 @@ __all__ = [
 
 #: Fixed stage vocabulary — every span name must be one of these, so the
 #: per-stage histogram's label set is closed (and CI can assert all of
-#: them are declared in the exposition).
+#: them are declared in the exposition). The reference's ten come first,
+#: in its order; the port's own follow (:data:`PORT_STAGES`).
 STAGES = (
     "decode",  # wire JSON -> workload dataclass (HTTP edge only)
     "validate",  # as_workload normalisation + workload validation
@@ -81,11 +100,17 @@ STAGES = (
     "eval",  # bucketed eval (scores, RDMs, tune sweeps)
     "null_chunk",  # permutation-null chunks (monolithic or streamed)
     "encode",  # response assembly (+ wire JSON on the HTTP edge)
+    "fingerprint",  # host copy + digest of X in fastcv.plan_key (register's top level)
+    "draw",  # permutation draws (core.permutation.permutation_indices)
+    "grid_point",  # one point of multidim.cv_grid
+    "hat_matrix",  # hat matrix of fastcv.prepare (after the dual Gram)
+    "fold_factors",  # fold blocks + Cholesky + H_{Tr,Te} of fastcv.prepare
+    "gather",  # server gather window, first dequeue -> dispatch (in batch_wait)
 )
 
-_CURRENT: "contextvars.ContextVar[Optional[Trace]]" = contextvars.ContextVar(
-    "repro_serve_trace", default=None
-)
+#: The stages this package adds after the reference's (a literal, as
+#: STAGES is: reprolint reads both without importing the module).
+PORT_STAGES = ("fingerprint", "draw", "grid_point", "hat_matrix", "fold_factors", "gather")
 
 _ATTR = "_obs_trace"
 
@@ -182,17 +207,31 @@ class Trace:
         """Submit side of the batch_wait stage (thread/async servers)."""
         self._t_enqueue = time.perf_counter()
 
-    def note_dequeue(self, now: Optional[float] = None) -> None:
+    def note_dequeue(self, now: Optional[float] = None,
+                     gathered_from: Optional[float] = None) -> None:
         """Serving side: record submit->dequeue latency as ``batch_wait``.
 
         ``now`` lets a server timestamp the batch *once* and attribute the
-        identical dequeue instant to every member.
+        identical dequeue instant to every member. ``gathered_from`` is
+        when the server's gather window opened (its first dequeue): the
+        window, clipped to this member's wait, becomes a ``gather`` child
+        of the ``batch_wait`` span.
         """
         if self._t_enqueue is None:
             return
         t = time.perf_counter() if now is None else now
-        self.add("batch_wait", max(0.0, t - self._t_enqueue))
+        wait = self._closed("batch_wait", self._t_enqueue, t)
+        self._sink().append(wait)
+        if gathered_from is not None:
+            wait.children.append(self._closed("gather", max(gathered_from, self._t_enqueue), t))
         self._t_enqueue = None
+
+    def _closed(self, name: str, t0: float, t1: float) -> Span:
+        """A finished span from ``t0`` to ``t1`` (``perf_counter`` reads; no
+        shorter than zero)."""
+        span = Span(name, t0 - self._t0)
+        span.duration = max(0.0, t1 - t0)
+        return span
 
     def _sink(self) -> list:
         return self._stack[-1].children if self._stack else self.spans
@@ -216,6 +255,7 @@ class Trace:
         return {
             "kind": self.kind,
             "estimator": self.estimator,
+            "t0_s": self._t0,
             "duration_s": self.duration,
             "timings": self.timings(),
             "spans": [s.to_dict() for s in self.spans],
@@ -242,7 +282,26 @@ class _SpanCtx:
             self.trace._stack.pop()
 
 
-_NULL_CM = contextlib.nullcontext()
+class _Shared:
+    """Times one block of shared work and adds it to each live trace."""
+
+    __slots__ = ("name", "traces", "device", "_t0")
+
+    def __init__(self, name: str, traces, device):
+        self.name, self.traces, self.device = name, traces, device
+
+    def __enter__(self) -> None:
+        self._t0 = time.perf_counter()
+
+    def __exit__(self, exc_type, *exc) -> None:
+        if exc_type is not None:
+            return
+        if torch.device(self.device).type == "cuda":
+            torch.cuda.synchronize(self.device)
+        seconds = time.perf_counter() - self._t0
+        for trace in self.traces:
+            if trace is not None:
+                trace.add(self.name, seconds)
 
 
 class _Activation:
@@ -325,8 +384,15 @@ class Tracer:
 
     def span(self, name: str):
         """Time one stage on the *active* trace (null CM when none)."""
-        trace = _CURRENT.get()
-        return trace.span(name) if trace is not None else _NULL_CM
+        return _span(name)
+
+    def shared(self, name: str, traces, device):
+        """Context manager timing one block of work that several traces
+        share (a coalesced group's eval or update) once, and adding it as
+        a ``name`` span to each trace of ``traces`` that is not None. It
+        waits for ``device`` before reading the clock, only when tracing
+        is on; a block that raises adds nothing. Off: a null CM."""
+        return _Shared(name, traces, device) if self.enabled else _NULL_CM
 
     def sync(self, value):
         """Wait for the card **only when a trace is active** — span

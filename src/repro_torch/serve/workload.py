@@ -1062,16 +1062,10 @@ def run_workloads(engine, workloads: Sequence, *, return_errors: bool = False) -
             # trace. No trace is active here, so the engine-internal eval
             # span is a no-op — the cost is counted exactly once per trace;
             # the card is synchronised before the clock is read.
-            t0 = time.perf_counter() if tracer.enabled else 0.0
-            ys = [_tensor(w.y, device) for _, w in members]
-            run = batcher.run_columns if spec.layout == "columns" else batcher.run_rows
-            outs = run(ys, lambda b: engine.eval_estimator(plan, b, estimator, **opts))
-            if tracer.enabled:
-                _synchronize(device)
-                dt = time.perf_counter() - t0
-                for i, _w in members:
-                    if traces[i] is not None:
-                        traces[i].add("eval", dt)
+            with tracer.shared("eval", [traces[i] for i, _w in members], device):
+                ys = [_tensor(w.y, device) for _, w in members]
+                run = batcher.run_columns if spec.layout == "columns" else batcher.run_rows
+                outs = run(ys, lambda b: engine.eval_estimator(plan, b, estimator, **opts))
         except Exception as e:  # noqa: BLE001 - the whole group shares the eval
             for i, _w in members:
                 fail(i, e)
@@ -1089,14 +1083,8 @@ def run_workloads(engine, workloads: Sequence, *, return_errors: bool = False) -
     # -- RSA: contrast columns ride the same coalesced label-batch path ----
     for (key, contrast, diss, adj, c), (plan, members) in rsa_groups.items():
         try:
-            t0 = time.perf_counter() if tracer.enabled else 0.0
-            rdms = _rsa_empirical(engine, key, plan, contrast, diss, adj, c, members)
-            if tracer.enabled:
-                _synchronize(device)
-                dt = time.perf_counter() - t0
-                for i, _w in members:
-                    if traces[i] is not None:
-                        traces[i].add("eval", dt)
+            with tracer.shared("eval", [traces[i] for i, _w in members], device):
+                rdms = _rsa_empirical(engine, key, plan, contrast, diss, adj, c, members)
         except Exception as e:  # noqa: BLE001 - the whole group shares the eval
             for i, _w in members:
                 fail(i, e)
@@ -1130,14 +1118,8 @@ def run_workloads(engine, workloads: Sequence, *, return_errors: bool = False) -
             drops = [_host(w.drop_idx) for _, w in members if w.drop_idx is not None]
             x_new = torch.cat(x_blocks) if x_blocks else None  # reprolint: ignore[RL001] -- one cat
             drop_idx = np.concatenate(drops) if drops else None
-            t0 = time.perf_counter() if tracer.enabled else 0.0
-            handle = update_dataset(members[0][1].dataset, x_new=x_new, drop_idx=drop_idx)
-            if tracer.enabled:
-                _synchronize(device)
-                dt = time.perf_counter() - t0
-                for i, _w in members:
-                    if traces[i] is not None:
-                        traces[i].add("plan_update", dt)
+            with tracer.shared("plan_update", [traces[i] for i, _w in members], device):
+                handle = update_dataset(members[0][1].dataset, x_new=x_new, drop_idx=drop_idx)
         except Exception as e:  # noqa: BLE001 - the group shares the update
             for i, _w in members:
                 fail(i, e)
@@ -1173,7 +1155,7 @@ def run_workloads(engine, workloads: Sequence, *, return_errors: bool = False) -
 
 
 def _synchronize(device) -> None:
-    """Wait for the card before a host clock reads a shared eval's time."""
+    """Wait for the card before a host clock reads the time of work on it."""
     if torch.device(device).type == "cuda":
         torch.cuda.synchronize(device)
 

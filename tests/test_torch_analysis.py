@@ -51,7 +51,8 @@ def test_rl001_torch_assembly_item_and_wall_clock():
 
 
 def test_rl002_stage_vocabulary():
-    assert sites(check("rl002_stage_vocab.py")) == [("RL002", 5), ("RL002", 7), ("RL002", 8)]
+    assert sites(check("rl002_stage_vocab.py")) == [("RL002", 5), ("RL002", 7), ("RL002", 8),
+                                                    ("RL002", 20), ("RL002", 22)]
 
 
 def test_rl003_metrics_discipline():
