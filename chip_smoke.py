@@ -569,6 +569,21 @@ def lam_rule(x: torch.Tensor) -> float:
     return float((xc * xc).sum()) / x.shape[0]
 
 
+def randperm_rows(seed: int, n: int, t: int, dev) -> torch.Tensor:
+    """(t, n) permutations drawn as the port drew them before permdraw: a
+    ``torch.Generator`` seeded from (seed, row) through ``SeedSequence`` and a
+    ``torch.randperm`` a row. The yardstick of the permdraw row only."""
+    import numpy as np
+
+    rows = []
+    for r in range(t):
+        state = np.random.SeedSequence([seed, r]).generate_state(1, np.uint64)[0]
+        gen = torch.Generator(device=dev)
+        gen.manual_seed(int(state) & 0x7FFF_FFFF_FFFF_FFFF)
+        rows.append(torch.randperm(n, generator=gen, device=dev))
+    return torch.stack(rows)
+
+
 def timed(fn):
     torch.cuda.synchronize()
     t0 = time.perf_counter()
@@ -1115,7 +1130,7 @@ def serve_phase(ds, x, y, folds, lam, grid_lam, x_more) -> dict:
     # replay (torch.profiler, union of its device intervals) against the same
     # replay's span on the device, and the host seconds of the permutation
     # draws alone (each permutation test and the RSA null draw 1,024 rows,
-    # one generator a row)
+    # one permdraw launch)
     profiled = device_calls(lambda: run_workloads(engine, work), reps=REPLAYS, warmup=0)
     _, t_draws = timed(lambda: permutation.permutation_indices(SEED, n, 1024, device=dev))
     _, t_draws8 = timed(lambda: permutation.permutation_indices(SEED, c8, 1024, device=dev))
@@ -1249,9 +1264,12 @@ def serve_phase(ds, x, y, folds, lam, grid_lam, x_more) -> dict:
     store_check["ok"] = (store_check["plans_built"] == 0 and store_check["store_hits"] == 1
                          and store_check["bit_equal"])
 
-    want_batch = {"gram": 1, "hat_apply": 308, "foldsolve": 308, "fold_eval": 1}
-    want_replay = {"gram": 1, "hat_apply": 307, "foldsolve": 307, "fold_eval": 1}
-    want_warm = {"gram": 1, "hat_apply": 57, "foldsolve": 57, "fold_eval": 11}
+    # draws: one permdraw launch for each permutation test and RSA null, and
+    # in warm-up one for each bucket of each warm-up call that draws
+    want_batch = {"gram": 1, "hat_apply": 308, "foldsolve": 308, "fold_eval": 1, "permdraw": 3}
+    want_replay = {"gram": 1, "hat_apply": 307, "foldsolve": 307, "fold_eval": 1, "permdraw": 3}
+    want_warm = {"gram": 1, "hat_apply": 57, "foldsolve": 57, "fold_eval": 11,
+                 "permdraw": len(w_a["buckets"]) + len(w_b["buckets"])}
     strip = lambda d: {k: v for k, v in d.items() if k != "calls"}
     out = {"phase": "serve", "N": n, "P": p, "K": folds.k, "m": folds.test_size,
            "dtype": "float32", "lam": lam, "grid_lam": grid_lam, "workloads": names,
@@ -1767,7 +1785,8 @@ def distributed_phase(ds, x, y, folds, lam) -> dict:
     checks["hat_equals_hat_matrix_dual"] = torch.equal(
         h, fastcv.hat_matrix_dual(x, lam, gram=centered_gram(x)))
     perm = step("distributed_permutation_binary", lambda: D.distributed_permutation_binary(
-        x, y, folds, lam, N_PERM, SEED, mesh), {"gram": 1, "hat_apply": 2, "foldsolve": 2})
+        x, y, folds, lam, N_PERM, SEED, mesh), {"gram": 1, "hat_apply": 2, "foldsolve": 2,
+                                                "permdraw": 1})
     want = permutation.analytical_permutation_binary(x, y, folds, lam, N_PERM, SEED,
                                                      chunk=N_PERM)
     checks["permutation_equals_core"] = (torch.equal(perm.observed, want.observed)
@@ -1795,7 +1814,7 @@ def distributed_phase(ds, x, y, folds, lam) -> dict:
     _, plan_l = local.plan(x, folds, lam)
     checks["engine_h_equals_local"] = torch.equal(plan.h, plan_l.h)
     res = step("engine_permutation_binary", lambda: engine.permutation_binary(
-        plan, y, N_PERM, SEED), {"hat_apply": 2, "foldsolve": 2})
+        plan, y, N_PERM, SEED), {"hat_apply": 2, "foldsolve": 2, "permdraw": 1})
     t_gen = bucket_size(N_PERM, engine.config.buckets)
     direct = D.sharded_null_from_plan(plan, y, permutation.permutation_indices(
         SEED, n, t_gen, device=dev), mesh)[:N_PERM]
@@ -1816,9 +1835,9 @@ def distributed_phase(ds, x, y, folds, lam) -> dict:
     # the rule of the engines above
     w = Workload(kind="permutation", dataset=handle, y=y, n_perm=N_PERM, seed=SEED)
     events = step("stream_workload", lambda: list(stream_workload(
-        engine, w, chunk=DIST_STREAM_CHUNK)), {"hat_apply": 5, "foldsolve": 5})
+        engine, w, chunk=DIST_STREAM_CHUNK)), {"hat_apply": 5, "foldsolve": 5, "permdraw": 1})
     events_1024 = step("stream_workload_1024", lambda: list(stream_workload(
-        engine, w, chunk=t_gen)), {"hat_apply": 2, "foldsolve": 2})
+        engine, w, chunk=t_gen)), {"hat_apply": 2, "foldsolve": 2, "permdraw": 1})
     nulls = lambda evs: torch.cat([e.payload for e in evs if e.kind == "null"])
     streamed = nulls(events)
     local_stream = nulls(stream_workload(local, Workload(
@@ -3163,6 +3182,8 @@ def main() -> None:
     from repro_torch.kernels.pairdist.pairdist import S_MAX_C as PD_S_MAX_C
     from repro_torch.kernels.pairdist.pairdist import pairdist_cuda, pairdist_route
     from repro_torch.kernels.pairdist.ref import pairwise_sq_dists_ref
+    from repro_torch.kernels.permdraw.ops import permdraw
+    from repro_torch.kernels.permdraw.ref import permdraw_ref
     from repro_torch.rsa import compare as rsa_compare
     from repro_torch.rsa import rdm as rsa_rdm
 
@@ -4231,6 +4252,27 @@ def main() -> None:
         "launches": launches_rsa["pairdist"],
         "launches_by_path": {k: v["pairdist"] for k, v in by_path.items()},
         "tol": TOL[f32], **shapes[0], "shapes": shapes, "route_sweep": route_sweep})
+    # permdraw: the serve path's draw of a permutation test, T = 1,000 at its
+    # bucket of 1,024 rows of N trials; bytes: the int64 rows written once;
+    # the per-row randperm loop it replaced as the yardstick
+    pd_key = (0x9E3779B9, 0x7F4A7C15)
+    pd_t, pd_n = 1024, n
+    pd_equal = torch.equal(permdraw(pd_key, pd_t, pd_n, device=dev),
+                           permdraw_ref(pd_key, pd_t, pd_n, device=dev))
+    kernels.append({
+        "name": "permdraw", "route": "cuda", "source": "src/repro_torch/csrc/permdraw.cu",
+        "replaces": "no TPU kernel: src/repro/core/permutation.py (jax.random.permutation)",
+        "launches": srv["launches"]["permdraw"],
+        "launches_by_path": {k: v["permdraw"] for k, v in by_path.items()},
+        "equals_plain": pd_equal, **timing({
+            "kernel": lambda: permdraw(pd_key, pd_t, pd_n, device=dev),
+            "plain": lambda: permdraw_ref(pd_key, pd_t, pd_n, device=dev),
+            "library": lambda: randperm_rows(SEED, pd_n, pd_t, dev),
+            "bytes": pd_t * pd_n * 8, "flops": 0,
+            "shape": f"(T, N) = ({pd_t}, {pd_n}) int64"}),
+        "library_note": "a seeded torch.Generator and torch.randperm a row (the former draw)"})
+    if not pd_equal:
+        fail("permdraw: the kernel's rows differ from the plain version's")
     # flash_attention: gemma2-2b's global layer at 8,192 tokens (the row),
     # its local layer and the probe's shape; SDPA as the library yardstick,
     # timed with K/V expanded to Hq heads beforehand, the boolean

@@ -25,6 +25,7 @@ from repro_torch.core import fastcv, lda, metrics, multiclass
 from repro_torch.core.folds import Folds
 from repro_torch.core.spans import span
 from repro_torch.kernels.common import resolve_device
+from repro_torch.kernels.permdraw.ops import permdraw
 
 __all__ = [
     "PermutationResult",
@@ -50,24 +51,21 @@ def p_value(observed: torch.Tensor, null: torch.Tensor) -> torch.Tensor:
 
 
 def permutation_indices(seed: int, n: int, n_perm: int, *, device=None) -> torch.Tensor:
-    """(T, N) int64 independent label permutations.
+    """(T, N) int64 independent, exactly uniform label permutations.
 
-    *Prefix-stable*: row t is drawn by its own ``torch.Generator`` seeded
-    from (seed, t) through numpy's ``SeedSequence``, so it depends only on
-    (seed, t) — a larger T yields the same leading rows. The rows differ
-    between devices (CPU and CUDA generators differ), never between runs.
-    ``device=None`` means ``cuda``.
+    One 64-bit key is derived from ``seed`` (a non-negative integer of any
+    size) through numpy's ``SeedSequence``; every row is then drawn at once
+    by ``kernels.permdraw``: a Fisher–Yates shuffle on Philox4x32-10 words
+    at the counter (t, step), with Lemire's bounded integers and rejection.
+    *Prefix-stable*: row t depends only on (seed, t), so a larger T yields
+    the same leading rows. The rows are the same on every device (the CPU
+    runs the kernel's plain version, bit for bit), and never differ between
+    runs. ``device=None`` means ``cuda``.
     """
     dev = resolve_device(device)
     with span("draw"):
-        rows = []
-        for t in range(n_perm):
-            state = np.random.SeedSequence([seed, t]).generate_state(1, np.uint64)[0]
-            gen = torch.Generator(device=dev)
-            gen.manual_seed(int(state) & 0x7FFF_FFFF_FFFF_FFFF)
-            rows.append(torch.randperm(n, generator=gen, device=dev))
-        return torch.stack(rows) if rows else torch.empty((0, n), dtype=torch.int64,
-                                                          device=dev)
+        k0, k1 = np.random.SeedSequence([seed]).generate_state(2, np.uint32)
+        return permdraw((int(k0), int(k1)), n_perm, n, device=dev)
 
 
 def _fold_metric_binary(dvals: torch.Tensor, y_te: torch.Tensor, metric: str) -> torch.Tensor:

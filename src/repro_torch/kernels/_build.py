@@ -35,7 +35,8 @@ PACKAGE = Path(__file__).resolve().parent.parent
 CSRC = PACKAGE / "csrc"
 BUILD_ROOT = PACKAGE / "_build"
 
-KERNELS = ("gram", "hat_apply", "foldsolve", "fold_eval", "pairdist", "flash_attention")
+KERNELS = ("gram", "hat_apply", "foldsolve", "fold_eval", "pairdist", "flash_attention",
+           "permdraw")
 
 #: ``-fno-gnu-unique``: a function-local static of a header's inline or
 #: template function (a launcher's once-per-device shared-memory opt-in
@@ -48,10 +49,12 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
+_U = ctypes.c_uint32
 _F = ctypes.c_float
 
 #: C signature of every entry point, by kernel: pointers and the stream
-#: (last) are ``c_void_p`` so ctypes never truncates them to 32 bits.
+#: (last) are ``c_void_p`` so ctypes never truncates them to 32 bits; a
+#: random key's words are ``c_uint32``, and so stay out of the launch's shape.
 ARGTYPES = {
     # (x, ws, g, n, p, splits, stream)
     "gram": {f"gram_{t}": (_P, _P, _P, _I, _I, _I, _P) for t in ("f32", "f64", "bf16")},
@@ -67,12 +70,14 @@ ARGTYPES = {
     # (q, k, v, o, b, hq, hkv, s, d, 12 strides, scale, softcap, causal, window, stream)
     "flash_attention": {f"flash_attention_{t}": (_P,) * 4 + (_I,) * 17 + (_F, _F, _I, _I, _P)
                         for t in ("f32", "bf16")},
+    # (out, k0, k1, t, n, stream)
+    "permdraw": {"permdraw": (_P, _U, _U, _I, _I, _P)},
 }
 
 #: Kernel launches per kernel since the last :func:`reset_launches`.
 LAUNCHES = {name: 0 for name in KERNELS}
 #: The same launches by shape: ``(kernel, the entry point's int arguments)``,
-#: e.g. ``("hat_apply", (n, b, splits))``.
+#: e.g. ``("hat_apply", (n, b, splits))`` or ``("permdraw", (t, n))``.
 LAUNCH_SHAPES: collections.Counter = collections.Counter()
 
 _lock = threading.Lock()

@@ -29,7 +29,8 @@ traffic-shaped service:
   warm-up.
 
 The streamed permutations are the same draws the monolithic path uses
-(``permutation_indices`` is prefix-stable under bucket rounding), so a
+(``permutation_indices`` draws every row in one ``permdraw`` launch,
+prefix-stable under bucket rounding and the same rows on every device), so a
 stream's final ``done`` payload matches the one-shot response up to
 padded-shape rounding (on the CPU bit for bit; on the card, bit for bit
 where the chunk equals the monolithic bucket).

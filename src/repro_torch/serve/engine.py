@@ -64,8 +64,10 @@ How this package differs from the reference's ``serve/engine.py``:
     and never hashes X again. Inline specs are hashed per request, as in
     the reference.
   * **RNG.** Permutations are drawn from an integer seed by
-    ``core.permutation.permutation_indices`` (prefix-stable), not by
-    ``jax.random``.
+    ``core.permutation.permutation_indices``, not by ``jax.random``: one
+    ``permdraw`` launch for all rows of a request (Fisher–Yates on
+    Philox4x32-10 words, Lemire's bounded integers with rejection),
+    prefix-stable, and the same rows on every device.
   * **Meshes.** ``EngineConfig.mesh`` takes a
     ``torch.distributed.device_mesh.DeviceMesh`` on the engine's device
     type, with ``feature_axis`` and ``perm_axes`` naming its dims. A mesh

@@ -49,8 +49,9 @@ Where this package differs from the reference's ``serve/workload.py``:
     :func:`run_workloads` / :func:`stream_workload` move every input to
     the engine's device (``engine.device``) before it reaches a kernel;
   * permutations are drawn from the integer ``seed`` by this package's
-    prefix-stable generator (``core.permutation.permutation_indices``),
-    not by ``jax.random``, so the draws differ from the reference's;
+    prefix-stable generator (``core.permutation.permutation_indices``: one
+    ``permdraw`` launch, the same rows on every device), not by
+    ``jax.random``, so the draws differ from the reference's;
   * outputs stay tensors on the engine's device: a coalesced group's
     per-request ``values`` are views of its one eval output.
 """

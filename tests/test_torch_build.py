@@ -100,6 +100,8 @@ def test_argtypes_table_matches_the_c_entry_points():
                 assert ctype is ctypes.c_void_p, (symbol, param)
             elif param == "float":
                 assert ctype is ctypes.c_float, (symbol, param)
+            elif param == "uint32_t":
+                assert ctype is ctypes.c_uint32, (symbol, param)
             else:
                 assert param == "int" and ctype is ctypes.c_int, (symbol, param)
         assert params[-1] == "void*"        # the stream comes last
@@ -108,10 +110,18 @@ def test_argtypes_table_matches_the_c_entry_points():
         assert (_build.CSRC / f"{kernel}.cu").is_file()
 
 
+#: Kernels with no TPU kernel behind them, and the JAX package's code each
+#: takes the place of.
+NO_TPU_KERNEL = {"permdraw": "src/repro/core/permutation.py"}
+
+
 def test_every_kernel_source_names_the_tpu_kernel_it_replaces():
     for kernel in _build.KERNELS:
         text = (_build.CSRC / f"{kernel}.cu").read_text()
-        assert f"src/repro/kernels/{kernel}/{kernel}.py" in text
+        if kernel in NO_TPU_KERNEL:
+            assert "Replaces no TPU kernel" in text and NO_TPU_KERNEL[kernel] in text
+        else:
+            assert f"src/repro/kernels/{kernel}/{kernel}.py" in text
         assert "bounds it here" in text
 
 

@@ -436,6 +436,50 @@ def _multiclass_problem(gen, n=90, p=400, c=3):
     return x, y
 
 
+@pytest.mark.parametrize("t,n", [(1, 1), (5, 2), (64, 8), (1000, 787), (1024, 787),
+                                 (3, 40_000)])
+def test_permdraw_kernel_equals_the_plain_rows_on_the_cpu(gen, t, n):
+    """permutation_indices on the card is one permdraw launch, counted at
+    (t, n), and its rows equal the plain version's on the CPU bit for bit.
+    (3, 40,000) takes the global route: 32 rows of 40,000 do not fit in
+    shared memory."""
+    from repro_torch.core import permutation
+
+    seed = 2 ** 63 + 12_345
+    before, shape_before = _build.LAUNCHES["permdraw"], _build.LAUNCH_SHAPES["permdraw", (t, n)]
+    got = permutation.permutation_indices(seed, n, t, device="cuda")
+    torch.cuda.synchronize()
+    assert _build.LAUNCHES["permdraw"] - before == 1
+    assert _build.LAUNCH_SHAPES["permdraw", (t, n)] - shape_before == 1
+    assert got.shape == (t, n) and got.dtype == torch.int64 and got.is_contiguous()
+    assert torch.equal(got.cpu(), permutation.permutation_indices(seed, n, t, device="cpu"))
+
+
+def test_permutation_binary_on_the_card_draws_once_and_equals_plain(gen):
+    """The engine's whole permutation test at T = 1,000 (bucket 1,024) on the
+    card: one permdraw launch, and a null equal to the plain route's over the
+    CPU's draws of the same seed."""
+    from repro_torch.core import permutation
+    from repro_torch.serve import CVEngine, EngineConfig
+
+    x, y, _, k = _serve_problem()
+    _, plan = CVEngine(EngineConfig(device="cpu")).plan(
+        x, folds.kfold(len(x), k, seed=0, device="cpu"), 5.0)
+    plan_card = fastcv.CVPlan(*(t.cuda() for t in (plan.h, plan.te_idx, plan.tr_idx,
+                                                   plan.chol_ih, plan.h_tr_te)))
+    card = CVEngine(EngineConfig(device="cuda"))
+    seed = 2 ** 40 + 3
+    before = _build.LAUNCH_SHAPES["permdraw", (1024, len(x))]
+    got = card.permutation_binary(plan_card, y.cuda(), 1000, seed)
+    torch.cuda.synchronize()
+    assert _build.LAUNCH_SHAPES["permdraw", (1024, len(x))] - before == 1
+    rows = y[permutation.permutation_indices(seed, len(x), 1024, device="cpu")[:1000]]
+    yp = rows.T.contiguous()
+    dv = fastcv.binary_dvals(plan, yp, fused=True)
+    want = permutation._fold_metric_binary(dv, yp[plan.te_idx], "accuracy")
+    assert got.null.shape == (1000,) and torch.equal(got.null.cpu(), want)
+
+
 def test_multiclass_cv_on_the_card_equals_the_cpu(gen):
     x, y = _multiclass_problem(gen)
     f_gpu = folds.stratified_kfold(y, 5, seed=0, device="cuda")
@@ -747,6 +791,8 @@ def test_bucket_1024_null_on_the_card_equals_plain(gen, kind):
     plan_card = fastcv.CVPlan(*(t.cuda() for t in (plan.h, plan.te_idx, plan.tr_idx,
                                                    plan.chol_ih, plan.h_tr_te)))
     perms = permutation.permutation_indices(0, len(x), 1024, device="cuda")
+    assert torch.equal(perms.cpu(), permutation.permutation_indices(0, len(x), 1024,
+                                                                    device="cpu"))
     labels = y if kind == "binary" else yc
     before = dict(_build.LAUNCHES)
     rows = labels[perms[:1000].cpu()]                                  # (1000, N)

@@ -199,6 +199,142 @@ def test_permutation_indices_prefix_stable_and_valid():
     assert permutation.permutation_indices(7, 30, 0, device="cpu").shape == (0, 30)
 
 
+# The draw's yardstick: Philox4x32-10 and the Fisher–Yates shuffle with
+# Lemire's rejection, one scalar at a time in plain Python integers.
+_M32 = 0xFFFFFFFF
+
+
+def _philox_scalar(key, ctr):
+    (c0, c1, c2, c3), (k0, k1) = ctr, key
+    for r in range(10):
+        if r:
+            k0, k1 = (k0 + 0x9E3779B9) & _M32, (k1 + 0xBB67AE85) & _M32
+        p0, p1 = 0xD2511F53 * c0, 0xCD9E8D57 * c2
+        c0, c1, c2, c3 = (p1 >> 32) ^ c1 ^ k0, p1 & _M32, (p0 >> 32) ^ c3 ^ k1, p0 & _M32
+    return c0, c1, c2, c3
+
+
+def _scalar_word(key, row, w):
+    return _philox_scalar(key, (w >> 2, row & _M32, row >> 32, 0))[w & 3]
+
+
+def _scalar_rows(key, t, n, word=_scalar_word):
+    rows = []
+    for r in range(t):
+        a, w = list(range(n)), 0
+        for i in range(n - 1, 0, -1):
+            s = i + 1
+            m = word(key, r, w) * s
+            w += 1
+            while (m & _M32) < (1 << 32) % s:
+                m = word(key, r, w) * s
+                w += 1
+            a[i], a[m >> 32] = a[m >> 32], a[i]
+        rows.append(a)
+    return rows
+
+
+def _key(seed):
+    return tuple(int(k) for k in np.random.SeedSequence([seed]).generate_state(2, np.uint32))
+
+
+@pytest.mark.parametrize("ctr,key,want", [
+    ((0, 0, 0, 0), (0, 0), (0x6627E8D5, 0xE169C58D, 0xBC57AC4C, 0x9B00DBD8)),
+    ((_M32,) * 4, (_M32, _M32), (0x408F276D, 0x41C83B0E, 0xA20BC7C6, 0x6D5451FD)),
+    ((0x243F6A88, 0x85A308D3, 0x13198A2E, 0x03707344), (0xA4093822, 0x299F31D0),
+     (0xD16CFE09, 0x94FDCCEB, 0x5001E420, 0x24126EA1)),
+    ((7, 123456, 1, 0), _key(2026), None),
+    ((0xFFFFFFFE, 0x80000001, 0, 0xDEADBEEF), _key(2 ** 70), None),
+], ids=["kat-zero", "kat-ones", "kat-pi", "seeded", "wide"])
+def test_permdraw_philox_equals_scalar_rounds(ctr, key, want):
+    """The plain version's vectorised Philox4x32-10 (16-bit split products in
+    int64) equals the scalar rounds, and both equal Random123's known
+    answers where given."""
+    from repro_torch.kernels.permdraw.ref import philox4x32_10
+
+    got = tuple(int(v) for v in philox4x32_10(key, *(torch.tensor([c]) for c in ctr)))
+    assert got == _philox_scalar(key, ctr)
+    if want is not None:
+        assert got == want
+
+
+@pytest.mark.parametrize("seed,t,n", [(0, 6, 13), (11, 40, 2), (2 ** 63 + 9, 5, 64)])
+def test_permutation_indices_equal_the_scalar_shuffle(seed, t, n):
+    """Rows on the CPU are the scalar Fisher–Yates over the scalar words
+    under the key SeedSequence([seed]) gives."""
+    got = permutation.permutation_indices(seed, n, t, device="cpu")
+    assert got.dtype == torch.int64
+    assert got.tolist() == _scalar_rows(_key(seed), t, n)
+
+
+def test_permdraw_rejection_takes_the_next_word(monkeypatch):
+    """A rejected draw (a zero word is rejected for every s that is not a
+    power of two) takes the next word of its own row, as the scalar shuffle
+    does; other rows are untouched."""
+    from repro_torch.kernels.permdraw import ref
+
+    planted = {(1, 0), (2, 3), (2, 4), (4, 11)}          # (row, word index) read as 0
+
+    def word(key, r, w):
+        return 0 if (r, w) in planted else _scalar_word(key, r, w)
+
+    words = ref._words
+
+    def planted_words(key, rows, first, blocks):
+        out = words(key, rows, first, blocks)
+        for r, w in planted:
+            if 4 * first <= w < 4 * (first + blocks):
+                out[r, w - 4 * first] = 0
+        return out
+
+    monkeypatch.setattr(ref, "_words", planted_words)
+    key = _key(5)
+    got = ref.permdraw_ref(key, 6, 13, device="cpu")
+    assert got.tolist() == _scalar_rows(key, 6, 13, word)
+    assert got.tolist() != _scalar_rows(key, 6, 13)
+    assert got[[0, 3, 5]].tolist() == [_scalar_rows(key, 6, 13)[r] for r in (0, 3, 5)]
+
+
+@pytest.mark.parametrize("t,n", [(3, 0), (3, 1), (4, 2), (0, 5), (0, 0)])
+def test_permutation_indices_edge_shapes(t, n):
+    got = permutation.permutation_indices(3, n, t, device="cpu")
+    assert got.shape == (t, n) and got.dtype == torch.int64
+    assert torch.equal(got.sort(dim=1).values, torch.arange(n).expand(t, n))
+
+
+@pytest.mark.parametrize("key,t,n", [((1, 2), -1, 5), ((1, 2), 4, 2 ** 31), ((1, 2, 3), 4, 5),
+                                     ((1, 2 ** 32), 4, 5), ((-1, 2), 4, 5)])
+def test_permdraw_refuses_what_it_does_not_take(key, t, n):
+    from repro_torch.kernels.permdraw.ops import permdraw
+
+    with pytest.raises(ValueError):
+        permdraw(key, t, n, device="cpu")
+
+
+def test_permutation_indices_accept_seeds_above_2_63():
+    big = permutation.permutation_indices(2 ** 64 + 5, 30, 8, device="cpu")
+    assert torch.equal(big.sort(dim=1).values, torch.arange(30).expand(8, 30))
+    assert not torch.equal(big, permutation.permutation_indices(5, 30, 8, device="cpu"))
+    assert torch.equal(big, permutation.permutation_indices(2 ** 64 + 5, 30, 8, device="cpu"))
+
+
+def test_permutation_indices_refuse_a_negative_seed():
+    with pytest.raises(ValueError):
+        permutation.permutation_indices(-1, 30, 8, device="cpu")
+
+
+def test_permutation_indices_are_uniform_over_all_24_orders():
+    """Pearson's chi-square of the 24 permutations of N = 4 over 24,000 rows
+    (23 degrees of freedom) under 49.73, its upper 0.1 % point."""
+    rows = permutation.permutation_indices(0, 4, 24_000, device="cpu")
+    codes = ((rows[:, 0] * 4 + rows[:, 1]) * 4 + rows[:, 2]) * 4 + rows[:, 3]
+    counts = torch.bincount(codes, minlength=256)
+    counts = counts[counts > 0].double()
+    assert counts.numel() == 24
+    chi2 = float(((counts - 1000.0) ** 2 / 1000.0).sum())
+    assert chi2 < 49.73, chi2
+
+
 @pytest.mark.parametrize("metric", ["accuracy", "auc"])
 @pytest.mark.parametrize("adjust_bias", [True, False])
 def test_analytical_permutation_matches_reference(metric, adjust_bias, monkeypatch):
