@@ -24,6 +24,7 @@ from __future__ import annotations
 
 import asyncio
 import collections
+import random
 import time
 
 import torch
@@ -151,6 +152,13 @@ class _Permutation(_Kind):
     async def setup(self):
         self.handles = [await self.server.register(s.x, self.folds(s), s.lam)
                         for s in self.subjects]
+        # The check reads ``check_requests`` answers of the window, a uniform
+        # sample drawn from the run's seed. They are drawn as the answers
+        # come (reservoir sampling), so the window holds the program's
+        # outputs of those requests alone. Holding every request's device
+        # tensors (some 15,000 in a 51-s window on an H100) slowed the
+        # engine by about a tenth and spread the runs.
+        self.kept = _Reservoir(self.run.cell["check_requests"], subseed(self.run.seed, 4))
 
     async def request(self, req, r, warm=False):
         from repro_torch.serve import Workload
@@ -163,18 +171,17 @@ class _Permutation(_Kind):
         resp = await self.submit(req, w)
         if not warm:
             req.units = {"perms": t}
-            self.run.state["answers"].append((i, seed, resp.observed, resp.null, resp.p))
+            self.kept.offer(self.run.state["answers"], (i, seed, resp.observed, resp.null, resp.p))
 
     def answers(self) -> dict:
-        """The window's answers, with the program's draws of the requests
-        drawn for the check."""
+        """The answers sampled from the window, with the program's draws of
+        those requests."""
         from repro_torch.core.permutation import permutation_indices
 
         out = super().answers()
         n, t = self.run.config["n_trials"], self.run.traffic["n_perm"]
         out["draws"] = {seed: permutation_indices(seed, n, t, device=self.run.device)
-                        for _, seed, *_ in _sample(self.run, out["items"],
-                                                   self.run.cell["check_requests"])}
+                        for _, seed, *_ in out["items"]}
         return out
 
     def reference(self, answers: dict, precision: str) -> dict:
@@ -247,6 +254,25 @@ class _Permutation(_Kind):
         bad = {**answers, "draws": draws}
         ref = self.reference(bad, "f64")
         return self.compare(self.as_answers(bad, ref), ref)
+
+
+class _Reservoir:
+    """A uniform sample of ``size`` of the items offered, drawn from ``seed``
+    as they come (Algorithm R): each of the first ``k`` items stays with
+    probability ``size / k``."""
+
+    def __init__(self, size: int, seed: int):
+        self.size, self.offered = size, 0
+        self.rng = random.Random(seed)
+
+    def offer(self, kept: list, item) -> None:
+        self.offered += 1
+        if len(kept) < self.size:
+            kept.append(item)
+            return
+        j = self.rng.randrange(self.offered)
+        if j < self.size:
+            kept[j] = item
 
 
 def _invalid_rows(perms: torch.Tensor) -> int:
@@ -393,15 +419,6 @@ def release(run) -> None:
     run.state["engine"] = None
     if run.device.type == "cuda":
         torch.cuda.empty_cache()
-
-
-def _sample(run, items: list, n: int) -> list:
-    """``n`` of the window's answers, drawn from the run's seed."""
-    if len(items) <= n:
-        return list(items)
-    gen = torch.Generator().manual_seed(subseed(run.seed, 4))
-    pick = torch.randperm(len(items), generator=gen)[:n].sort().values
-    return [items[int(j)] for j in pick]
 
 
 # -- the check, through the kind of request -------------------------------------

@@ -5,64 +5,130 @@ from __future__ import annotations
 
 import ast
 import json
-import re
 import shutil
 import subprocess
 import sys
 
 import pytest
 
+import perfbench_contract as contract
 import perfbench_testkit as kit
 from counts import kernels as counts
 from harness import bench
 
-NAME = re.compile(r"^[A-Za-z0-9_][A-Za-z0-9_.-]{0,63}$")
-UNIT = re.compile(r"^[A-Za-z0-9_/%.-]{1,16}$")
-SOURCES = {"device_trace", "program_span", "program_counter", "host_clock"}
-
 
 def test_benchmark_json_follows_the_contract():
-    b = kit.benchmark()
-    assert set(b) == {"command", "paths", "run_seconds", "configs", "workloads",
-                      "end_to_end", "per_layer"}
-    assert b["command"] == ["python3", "perfbench/run.py"] and b["paths"] == ["perfbench"]
-    assert 1 <= b["run_seconds"] <= 51
-    configs = {c["name"]: c for c in b["configs"]}
-    for c in b["configs"]:
-        assert set(c) == {"name", "source", "file", "reduced", "why"}
-        assert NAME.match(c["name"]) and c["file"].startswith("perfbench/")
-        assert (kit.ROOT / c["file"]).is_file() and c["reduced"] == []
-        assert json.loads((kit.ROOT / c["file"]).read_text())["name"] == c["name"]
-    e2e = {m["name"]: m for m in b["end_to_end"]}
-    assert "setup_s" in e2e and e2e["setup_s"]["bound"] <= 0.25
-    cells = [w["name"] for w in b["workloads"]]
-    assert cells == list(kit.CELLS)
-    for w in b["workloads"]:
-        assert set(w) == {"name", "config", "traffic", "chips", "why"}
-        assert w["chips"] == 1 and w["config"] in configs and len(w["why"]) <= 200
-        cell = json.loads((kit.BENCH / "cells" / f"{w['name']}.json").read_text())
-        assert (cell["config"], cell["traffic"], cell["why"]) == (w["config"], w["traffic"],
-                                                                  w["why"])
-        reported = [m["name"] for m in bench.cell_metrics(b, w["name"], trace=False)]
-        assert "setup_s" in reported and len(reported) >= 2
-        assert bench.cell_metrics(b, w["name"], trace=True)
-    for m in b["end_to_end"] + b["per_layer"]:
-        assert NAME.match(m["name"]) and UNIT.match(m["unit"]) and m["better"] in ("lower",
-                                                                                  "higher")
-        assert m["source"] in SOURCES
-        assert (kit.BENCH / "metrics" / f"{m['name']}.py").is_file()
-        assert set(m.get("workloads", [])) <= set(cells)
-    for m in b["end_to_end"]:
-        assert 0.01 <= m["bound"] <= 0.25 and m["source"] in ("host_clock", "device_trace")
-    for m in b["per_layer"]:
-        assert set(m) == {"name", "unit", "better", "source", "layer", "moves", "workloads"}
-        assert m["moves"] in e2e
-        for cell in m["workloads"]:
-            moved = e2e[m["moves"]]
-            assert cell in moved.get("workloads", cells)
-        if m["name"].endswith("_roofline") or "_roofline." in m["name"]:
-            assert m["unit"] == "%"
-    assert len(json.dumps(b)) < 64 * 1024
+    contract.check(kit.benchmark(), kit.BENCH)
+
+
+def _copy(tmp_path):
+    """A copy of the benchmark (``perfbench/`` and ``BENCHMARK.json``)."""
+    bench_dir = tmp_path / "perfbench"
+    shutil.copytree(kit.BENCH, bench_dir, ignore=shutil.ignore_patterns("__pycache__"))
+    shutil.copy(kit.ROOT / "BENCHMARK.json", tmp_path / "BENCHMARK.json")
+    return bench_dir
+
+
+def _write(path, obj) -> None:
+    path.parent.mkdir(parents=True, exist_ok=True)
+    path.write_text(json.dumps(obj, indent=2))
+
+
+def _cut(reduced, cuts=None, **values):
+    """Cuts of ``wh-meg-tp380``: the entry's ``reduced``, and the file's
+    ``cuts`` and values."""
+    def mutate(b, bench_dir):
+        entry = next(c for c in b["configs"] if c["name"] == "wh-meg-tp380")
+        entry["reduced"] = reduced
+        path = bench_dir.parent / entry["file"]
+        config = json.loads(path.read_text())
+        config.update(values)
+        if cuts is not None:
+            config["cuts"] = cuts
+        _write(path, config)
+    return mutate
+
+
+def _unlink(*parts):
+    return lambda b, bench_dir: bench_dir.joinpath(*parts).unlink()
+
+
+def _chips(*each):
+    def mutate(b, bench_dir):
+        for w, chips in zip(b["workloads"], each):
+            w["chips"] = chips
+    return mutate
+
+
+def _cells_over_the_cap(b, bench_dir):
+    spare = b["workloads"][0]
+    b["workloads"] += [{**spare, "name": f"spare.{i}"} for i in range(25 - len(b["workloads"]))]
+
+
+def _spare_cell(b, bench_dir):
+    cells = bench_dir / "cells"
+    shutil.copy(cells / "st76k.cohort.json", cells / "st76k.spare.json")
+
+
+def _empty_faults(b, bench_dir):
+    kit.faults_path("tp380.grid", bench_dir).write_text("FAULTS = {}\n")
+
+
+BROKEN = {
+    "workload without a cell file": (
+        _unlink("cells", "tp380.grid.json"),
+        "workload tp380.grid has no cell file perfbench/cells/tp380.grid.json"),
+    "cell file without a workload": (
+        _spare_cell, "cell file perfbench/cells/st76k.spare.json has no workload"),
+    "configuration without a sizes file": (
+        _unlink("tests", "sizes", "configs", "wh-meg-tp380.json"),
+        "wh-meg-tp380 has no sizes file perfbench/tests/sizes/configs/wh-meg-tp380.json"),
+    "traffic without a sizes file": (
+        _unlink("tests", "sizes", "traffic", "grid_closed4.json"),
+        "grid_closed4 has no sizes file perfbench/tests/sizes/traffic/grid_closed4.json"),
+    "cell without a faults file": (
+        _unlink("tests", "faults", "tp380.grid.py"),
+        "tp380.grid has no faults file perfbench/tests/faults/tp380.grid.py"),
+    "cell with an empty FAULTS": (
+        _empty_faults, "perfbench/tests/faults/tp380.grid.py: FAULTS is empty"),
+    "reduced entry that is no key's name": (
+        _cut(["subjects: 16 -> 2 (a test)"]), "reduced entry 'subjects: 16 -> 2 (a test)'"),
+    "reduced names a key the file lacks": (
+        _cut(["n_subjects"]), "reduced names 'n_subjects', which perfbench/configs/"),
+    "reduced names a record's width": (
+        _cut(["n_channels"], cuts={"n_channels": "380 -> 380 (x)"}),
+        "reduced names 'n_channels', which is no depth, share of a layer or cohort"),
+    "reduced names a model's width": (
+        _cut(["d_model"], cuts={"d_model": "2048 -> 256 (x)"}, d_model=256),
+        "reduced names 'd_model', which is no depth, share of a layer or cohort"),
+    "reduced differs between the entry and the file": (
+        _cut(["subjects"], cuts={"folds": "10 -> 10 (x)"}),
+        "cuts ['folds'] are not its reduced keys ['subjects']"),
+    "a cut without its record": (
+        _cut(["subjects"]), "cuts [] are not its reduced keys ['subjects']"),
+    "a malformed cut": (
+        _cut(["subjects"], cuts={"subjects": "16 to 2"}, subjects=2),
+        "the cut of subjects reads '16 to 2'"),
+    "a cut that is not the file's value": (
+        _cut(["subjects"], cuts={"subjects": "16 -> 4 (a test)"}, subjects=2),
+        "the cut of subjects gives 4, the file holds 2"),
+    "a 25th cell": (_cells_over_the_cap, "25 cells; each 1 to 24"),
+    "chips neither 1 nor 4": (_chips(1, 2), "st76k.perm1000 asks for 2 chips, not 1 or 4"),
+    "one 4-chip cell beyond the quota": (
+        _chips(4, 4), "2 cells ask for 4 chips (st76k.cohort, st76k.perm1000); 4 cells allow 1"),
+}
+
+
+@pytest.mark.parametrize("case", list(BROKEN))
+def test_the_contract_names_what_a_broken_benchmark_misses(case, tmp_path):
+    bench_dir = _copy(tmp_path)
+    b = kit.benchmark(bench_dir)
+    contract.check(b, bench_dir)
+    mutate, message = BROKEN[case]
+    mutate(b, bench_dir)
+    with pytest.raises(contract.ContractError) as err:
+        contract.check(b, bench_dir)
+    assert message in str(err.value)
 
 
 def test_count_functions_on_hand_worked_shapes():
@@ -142,23 +208,63 @@ def test_a_run_fails_in_a_directory_with_only_the_benchmark(tmp_path):
     assert "repro_torch" in out.stderr
 
 
-def test_a_new_config_cell_traffic_and_metric_are_found_by_name(tmp_path):
-    """Adding files (and entries) is enough: nothing that is there changes."""
-    bench_dir = tmp_path / "perfbench"
-    shutil.copytree(kit.BENCH, bench_dir, ignore=shutil.ignore_patterns("__pycache__"))
+def _files(root) -> dict:
+    return {str(p.relative_to(root)): p.read_bytes() for p in sorted(root.rglob("*"))
+            if p.is_file() and "__pycache__" not in p.parts}
+
+
+def _only_appended(old: dict, new: dict) -> None:
+    """Every entry of ``old`` is in ``new`` as it was, but for names
+    appended to its ``workloads``."""
+    assert set(new) == set(old)
+    for key, value in old.items():
+        if not (isinstance(value, list) and value and isinstance(value[0], dict)):
+            assert new[key] == value, key
+            continue
+        assert len(new[key]) >= len(value), key
+        for was, now in zip(value, new[key]):
+            now = dict(now)
+            if "workloads" in was:
+                assert now["workloads"][:len(was["workloads"])] == was["workloads"], was["name"]
+                now["workloads"] = was["workloads"]
+            assert now == was, was["name"]
+
+
+TINY_FAULTS = """\
+from perfbench_faultkit import altered, first_plus, pair_first
+from repro_torch.core import fastcv
+
+FAULTS = {"decision value altered": (fastcv, "binary_cv",
+                                     lambda f: altered(f, pair_first(first_plus(1.0))))}
+"""
+
+
+def test_a_new_config_cell_traffic_and_metric_are_found_by_name(tmp_path, monkeypatch):
+    """Adding files (and entries) is enough: nothing that is there changes.
+    The copy's contract holds, its kit finds the cell, its sizes and its
+    fault, and the cell plays untraced and traced."""
+    bench_dir = _copy(tmp_path)
+    before = _files(tmp_path)
     config = json.loads((bench_dir / "configs" / "wh-meg-st76k.json").read_text())
-    config.update({**kit.TINY_CONFIG, "name": "tiny-meg", "n_channels": 5})
-    (bench_dir / "configs" / "tiny-meg.json").write_text(json.dumps(config))
-    (bench_dir / "traffic" / "tiny_loop.json").write_text(
-        json.dumps({"subjects": 2, "warmup_analyses": 1}))
-    (bench_dir / "cells" / "tiny.loop.json").write_text(json.dumps(
-        {"config": "tiny-meg", "traffic": "tiny_loop", "driver": "library",
-         "why": "a throwaway cell", "limits": {"dval_err": 1e-3, "class_gap": 1e-2}}))
+    tiny = {**json.loads(kit.sizes_path("configs", "wh-meg-st76k").read_text())["tiny"],
+            "n_channels": 5}
+    del config["reduced"]
+    config.update({**tiny, "name": "tiny-meg", "subjects": 2,
+                   "cuts": {"subjects": "16 -> 2 (a test's cohort)"}})
+    _write(bench_dir / "configs" / "tiny-meg.json", config)
+    _write(bench_dir / "traffic" / "tiny_loop.json", {"subjects": 2, "warmup_analyses": 1})
+    _write(bench_dir / "cells" / "tiny.loop.json",
+           {"config": "tiny-meg", "traffic": "tiny_loop", "driver": "library",
+            "why": "a throwaway cell", "limits": {"dval_err": 1e-3, "class_gap": 1e-2}})
     (bench_dir / "metrics" / "analyses_done.py").write_text(
         "def read(run):\n    return len(run.done())\n")
-    b = kit.benchmark()
+    _write(kit.sizes_path("configs", "tiny-meg", bench_dir),
+           {"tiny": tiny, "control": {**tiny, "n_trials": 200}})
+    _write(kit.sizes_path("traffic", "tiny_loop", bench_dir), {"tiny": {"subjects": 2}})
+    kit.faults_path("tiny.loop", bench_dir).write_text(TINY_FAULTS)
+    b = kit.benchmark(bench_dir)
     b["configs"].append({"name": "tiny-meg", "source": "test", "why": "test",
-                         "file": "perfbench/configs/tiny-meg.json", "reduced": []})
+                         "file": "perfbench/configs/tiny-meg.json", "reduced": ["subjects"]})
     b["workloads"].append({"name": "tiny.loop", "config": "tiny-meg", "traffic": "tiny_loop",
                            "chips": 1, "why": "a throwaway cell"})
     for m in b["end_to_end"]:
@@ -167,6 +273,18 @@ def test_a_new_config_cell_traffic_and_metric_are_found_by_name(tmp_path):
     b["per_layer"].append({"name": "analyses_done", "unit": "analyses", "better": "higher",
                            "source": "host_clock", "layer": "test", "moves": "subjects_per_s",
                            "workloads": ["tiny.loop"]})
+    _write(tmp_path / "BENCHMARK.json", b)
+    b = kit.benchmark(bench_dir)
+
+    contract.check(b, bench_dir)
+    assert kit.cells(bench_dir) == kit.CELLS + ("tiny.loop",)
+    assert kit.fault_cases(bench_dir)[-1] == ("tiny.loop", "decision value altered")
+    run = kit.tiny_run("tiny.loop", bench_dir=bench_dir)
+    assert run.config["n_channels"] == 5 and run.traffic["subjects"] == 2
+    owner, attr, breaker = kit.faults("tiny.loop", bench_dir)["decision value altered"]
+    with monkeypatch.context() as patch:
+        patch.setattr(owner, attr, breaker(getattr(owner, attr)))
+        assert kit.execute(run, b, bench_dir)["correct"] is False
     import torch
 
     cell, cfg, traffic = bench.load_cell("tiny.loop", bench_dir)
@@ -178,3 +296,9 @@ def test_a_new_config_cell_traffic_and_metric_are_found_by_name(tmp_path):
         assert res["correct"]
         names = set(res["metrics"])
         assert names == ({"analyses_done"} if trace else {"setup_s", "subjects_per_s"})
+
+    after = _files(tmp_path)
+    for path, data in before.items():
+        if path != "BENCHMARK.json":
+            assert after[path] == data, path
+    _only_appended(json.loads(before["BENCHMARK.json"]), json.loads(after["BENCHMARK.json"]))
